@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the JAX package of this repository, for NVIDIA Hopper.
+
+The measure-and-SSML step of one voice runs here in PyTorch: Boersma pitch
+(with hand-written CUDA kernels for the candidate selection and the Viterbi
+path finder, ``csrc/``), BS.1770 loudness, the clamp/smooth math and the
+three BDD CSVs. The layout mirrors the JAX package (``ops/``, ``prosody/``,
+``ssml/``, ``utils/``, ``core/``) so each module's counterpart is easy to
+find. This package imports neither JAX nor the JAX package.
+"""

@@ -1,0 +1,55 @@
+"""Two-level (chunked) prefix sums over long signals.
+
+The same scheme as the JAX package's ``ops/cumsum.py``: an in-chunk
+cumulative sum over chunks of ``CHUNK = 2048`` samples plus exclusive
+chunk-total offsets. A flat ``torch.cumsum`` over 10⁶ samples would round
+differently; every windowed sum that must agree with the reference goes
+through this structure (frame local means in ``ops.pitch``, the loudness
+fallback in ``ops.loudness``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+CHUNK = 2048
+
+
+@dataclass
+class ChunkedCumsum:
+    """Exclusive prefix sums of a [..., T] signal, queryable at any index
+    0 ≤ i ≤ T (``lookup(i)`` = sum(x[..., :i]); out-of-range clamps)."""
+
+    within_ex: torch.Tensor  # [..., n_chunks, CHUNK] exclusive in-chunk sums
+    block: torch.Tensor  # [..., n_chunks] exclusive chunk-total prefix
+    length: int  # original T
+
+    @classmethod
+    def build(cls, x: torch.Tensor) -> "ChunkedCumsum":
+        T = x.shape[-1]
+        nb = T // CHUNK + 1  # ≥ 1 padded slot → nb·CHUNK ≥ T+1, lookup(T) safe
+        xp = torch.nn.functional.pad(x, (0, nb * CHUNK - T)).reshape(x.shape[:-1] + (nb, CHUNK))
+        within = torch.cumsum(xp, dim=-1)
+        chunk_tot = within[..., -1]
+        block = torch.cumsum(chunk_tot, dim=-1) - chunk_tot  # exclusive
+        return cls(within_ex=within - xp, block=block, length=T)
+
+    def lookup(self, idx: torch.Tensor) -> torch.Tensor:
+        """Prefix sums at integer indices idx [..., I], whose leading dims
+        are the signal's batch dims."""
+        idx = idx.to(torch.int64).clamp(0, self.length)
+        q = idx // CHUNK
+        flat_w = self.within_ex.reshape(self.within_ex.shape[:-2] + (-1,))
+        bd = self.block.dim() - 1
+        if bd == 0:
+            return self.block[q] + flat_w[idx]
+        qf = q.reshape(q.shape[:bd] + (-1,))
+        wf = idx.reshape(idx.shape[:bd] + (-1,))
+        b = self.block.gather(-1, qf).reshape(q.shape)
+        w = flat_w.gather(-1, wf).reshape(q.shape)
+        return b + w
+
+    def range_sum(self, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+        return self.lookup(hi) - self.lookup(lo)

@@ -1,0 +1,151 @@
+"""Build, load and call the port's CUDA kernels (``csrc/*.cu``).
+
+The kernels have a plain C interface (pointers and the stream as
+``void*``, each function returns ``cudaGetLastError()``), so they build
+with ``nvcc`` alone in seconds, without PyTorch's headers, and bind with
+``ctypes``. The build runs at first use, from the sources in the checkout,
+into ``build/torch_kernels/`` at the repository root (listed in
+``.gitignore``); a content hash of the sources names the library, so an
+edited source is rebuilt. Each source compiles to its own object in
+parallel, and one link makes the shared library.
+
+Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``
+and ``ops.viterbi`` take their plain PyTorch versions only for tensors on
+the CPU, and call :func:`library` only for CUDA tensors — a failed build
+or launch raises, there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+SOURCES = ("pitch_candidates.cu", "viterbi.cu")
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+
+# --fmad=false: torch rounds every multiply and add on its own; a fused
+# multiply-add in the kernels would round differently from the plain
+# versions the kernels are held against.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+)
+
+_LIB = None
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # r, lag_f, strength, valid, rows, L, k, min_lag, max_lag, half_vth, stream
+    "pitch_candidates_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP),
+    # delta, lf, voiced, freq, back, f0, S, F, K, vuv_cost, jump_cost, stream
+    "viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP),
+}
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. CUDA is the default of every entry
+    point; asking for it on a host without a card raises (a CPU run must be
+    asked for with ``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def dsp_precision() -> None:
+    """Full float32 for the DSP path: no TF32 in matmuls or convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the kernels (if this source hash has no library yet) and
+    return the library's path."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
+    lib = BUILD_DIR / f"libpcft_kernels_{tag}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{Path(name).stem}_{tag}.o"
+        objs.append(obj)
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out.decode(errors='replace')}")
+    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           *map(str, objs), "-o", str(tmp)]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{res.stdout.decode(errors='replace')}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for fn, args in _SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(args)
+            f.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, device: torch.device) -> None:
+    """Wrapper argument check: what the kernel does not take raises."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

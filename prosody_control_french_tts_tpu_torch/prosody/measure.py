@@ -1,0 +1,426 @@
+"""Prosody measurement of one voice, in PyTorch.
+
+Port of the JAX package's ``prosody/measure.py``. The whole voice is loaded
+into two padded corpora (natural [S, T], raw synthetic [S, T2]); two eager
+device passes on one stream compute
+
+- the natural side: the F0 track of every segment (Boersma frames, kernel A
+  for the candidates, kernel B for the path), the voiced median in every
+  syntagme window and over each segment, and gated LUFS of every syntagme
+  window with the full-file fallback;
+- the raw side: the same gated LUFS.
+
+Durations, word counts and the clamp/smooth math run on the host
+(``prosody.adjust``); host work is otherwise file I/O, TextGrid parsing and
+syntagme bookkeeping. Lengths are padded to ``bucket_length`` buckets: the
+F0 frame grid is centred over the padded buffer, so the bucket rule is kept
+exactly as the JAX package's to keep the same frames.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core.profiling import phase
+from ..ops import pcm
+from ..ops.kernels import dsp_precision, resolve_device
+from ..ops.loudness import k_weight, max_blocks_for, windowed_loudness
+from ..ops.pitch import PitchParams, PitchTrack, _geometry, _pitch_frames, median_pitch_in_windows, viterbi_batched
+from ..ops.rangemax import RangeMax
+from ..ssml.syntagme import Syntagme, extract_words_and_pauses, pipeline_syntagmes
+from ..utils import fr_pos
+from ..utils.textgridio import read_textgrid
+from ..utils.wavio import read_wav, resample
+from .adjust import ProsodySettings, pitch_adjust_pct, rate_adjust_pct, segment_baselines, smooth_series, volume_adjust_pct
+
+
+def bucket_length(n: int, minimum: int = 1 << 15) -> int:
+    """Next (2^k − 8192) ≥ n (≥ minimum): few distinct shapes for ragged
+    segments, and exactly the K-weighting filter's 8192-sample decay pad so
+    the loudness FFT lands on a power of two."""
+    m = minimum
+    while m - 8192 < n:
+        m *= 2
+    return m - 8192
+
+
+@dataclass
+class MeasureRow:
+    segment: str
+    syntagme: str
+    pause: int
+    raw_pitch: float
+    raw_volume: float
+    raw_rate: float
+    pitch_smooth: float = 0.0
+    rate_smooth: float = 0.0
+
+
+@dataclass
+class SegmentStat:
+    segment: str
+    p_nat: float
+    l_nat: float
+    l_syn: float
+    d_nat: float
+    d_syn: float
+    wc: int
+    rate_ratio: float
+
+
+@dataclass
+class MeasureResult:
+    rows: list[MeasureRow]
+    seg_stats: list[SegmentStat]
+    baselines: dict[str, np.ndarray] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# device passes
+# ---------------------------------------------------------------------------
+
+
+def _pitch_part(nat, nat_len, win_nat, mask, rate: float, T: int, pp: PitchParams):
+    """Natural-side pitch: frames, candidates, path, windowed medians.
+    Returns (p_syn [S, N], p_seg [S])."""
+    g = _geometry(T, rate, pp)
+    freq, strength, intensity, _ = _pitch_frames(nat, rate, T, pp, nat_len.to(torch.float32))
+    f0 = viterbi_batched(freq, strength, intensity, pp, g["dt"])  # [S, F]
+    times = g["first_time"] + np.arange(g["n_frames"]) * g["dt"]
+    track = PitchTrack(f0=f0, times=times, dt=g["dt"])
+    p_syn = median_pitch_in_windows(track, win_nat.to(torch.float32) / rate, mask)
+    full_win = torch.stack([torch.zeros_like(nat_len), nat_len], dim=-1).to(torch.float32) / rate
+    p_seg = median_pitch_in_windows(track, full_win[:, None, :])[:, 0]
+    return p_syn, p_seg
+
+
+def _lufs_part(x, x_len, wins, rate: float, max_t: int):
+    """Windowed gated LUFS with the full-file fallback column."""
+    y = k_weight(x, rate, num_samples=max_t)
+    rmax = RangeMax.build(x)
+    # the full-file window rides as one extra column, so one windowed pass
+    # serves the fallback too
+    fw = torch.stack([torch.zeros_like(x_len), x_len], dim=-1)[:, None, :]
+    wins_ext = torch.cat([wins, fw], dim=1)  # [S, N+1, 2]
+    peaks = rmax.query(wins_ext[..., 0], wins_ext[..., 1])
+    peaks = torch.where(peaks > 0, peaks, torch.ones((), dtype=peaks.dtype, device=peaks.device))
+    lufs_ext, valid_ext = windowed_loudness(
+        y, rate, wins_ext[..., 0], wins_ext[..., 1], peaks, max_blocks=max_blocks_for(max_t, rate)
+    )
+    minus70 = torch.full((), -70.0, dtype=lufs_ext.dtype, device=lufs_ext.device)
+    flufs = torch.where(valid_ext[:, -1], lufs_ext[:, -1], minus70)
+    out = torch.where(valid_ext[:, :-1], lufs_ext[:, :-1], flufs[:, None])
+    return out, flufs
+
+
+def _as_f32(a: torch.Tensor) -> torch.Tensor:
+    return pcm.i16_to_f32(a) if a.dtype == torch.int16 else a
+
+
+def measure_nat(nat, nat_len, win_nat, mask, rate: float, T: int, pp: PitchParams):
+    """Natural side: (p_syn, p_seg, l_nat_syn, l_nat_seg)."""
+    nat = _as_f32(nat)
+    p_syn, p_seg = _pitch_part(nat, nat_len, win_nat, mask, rate, T, pp)
+    l_syn, l_seg = _lufs_part(nat, nat_len, win_nat, rate, T)
+    return p_syn, p_seg, l_syn, l_seg
+
+
+def measure_raw(raw, raw_len, win_raw, rate: float, T2: int):
+    """Raw side: (l_raw_syn, l_raw_seg)."""
+    return _lufs_part(_as_f32(raw), raw_len, win_raw, rate, T2)
+
+
+# ---------------------------------------------------------------------------
+# host orchestration
+# ---------------------------------------------------------------------------
+
+
+def _load_padded(paths, rate_expect=None):
+    """Read wavs (None: a missing file) → ([S, T] padded corpus — int16
+    when that image is exact, else float32 — lengths, rate, ok-flags)."""
+    sigs, ok = [], []
+    rate = rate_expect
+    for item in paths:
+        if item is None:
+            sigs.append(np.zeros(1, np.float32))
+            ok.append(False)
+            continue
+        try:
+            a = read_wav(item).to_mono()
+        except (FileNotFoundError, ValueError):
+            sigs.append(np.zeros(1, np.float32))
+            ok.append(False)
+            continue
+        if rate is None:
+            rate = a.rate
+        elif a.rate != rate:
+            a = resample(a, rate)
+        sigs.append(np.asarray(a.samples, np.float32))
+        ok.append(True)
+    T = bucket_length(max(s.shape[0] for s in sigs))
+    out = np.zeros((len(sigs), T), np.float32)
+    lens = np.zeros(len(sigs), np.int32)
+    for i, s in enumerate(sigs):
+        out[i, : s.shape[0]] = s
+        lens[i] = s.shape[0]
+    return _as_int16_if_lossless(out), lens, rate or 44100, np.asarray(ok)
+
+
+def _as_int16_if_lossless(out: np.ndarray) -> np.ndarray:
+    """The int16 image of the corpus when that conversion is exact; the
+    device casts back, so results are unchanged and the upload halves."""
+    q = pcm.f32_to_i16_exact(out)
+    return out if q is None else q
+
+
+def _ms_to_samp(ms: float, rate: int) -> int:
+    return int(ms * rate / 1000.0)
+
+
+@dataclass
+class PreparedVoice:
+    """Host-side arrays for one voice, ready for the device passes."""
+
+    names: list
+    raw_seqs: list
+    synts_per_seg: list
+    nat: np.ndarray
+    nat_len: np.ndarray
+    rate: int
+    raw_ok: np.ndarray
+    raw_len: np.ndarray
+    raw_for_device: np.ndarray
+    raw_len_dev: np.ndarray
+    win_nat: np.ndarray
+    win_raw: np.ndarray
+    win_raw_dev: np.ndarray
+    mask: np.ndarray
+    raw_slice_empty: np.ndarray
+
+
+def prepare_voice(
+    seg_files: list[Path],
+    textgrid_dir: Path,
+    raw_audio_dir: Path,
+    settings: ProsodySettings,
+    clean_word=None,
+    pos_of_factory=None,
+) -> PreparedVoice:
+    """Everything before the device passes: TextGrid parsing, syntagme
+    construction, padded corpus loading, window and fallback bookkeeping."""
+    if clean_word is None:
+        clean_word = fr_pos.remove_spurious_commas
+
+    names = [p.stem for p in seg_files]
+    with phase("measure/prepare/textgrids"):
+        tgs = [read_textgrid(textgrid_dir / f"{n}.TextGrid") for n in names]
+        raw_seqs = [extract_words_and_pauses(tg) for tg in tgs]
+        synts_per_seg: list[list[Syntagme]] = [
+            pipeline_syntagmes(
+                tg, settings.end_punctuation_pause_ms, clean_word=clean_word, pos_of_factory=pos_of_factory
+            )
+            for tg in tgs
+        ]
+
+    with phase("measure/prepare/load_nat"):
+        nat, nat_len, rate, _ = _load_padded(seg_files)
+    raw_paths = [raw_audio_dir / f"{n}.wav" for n in names]
+    with phase("measure/prepare/load_raw"):
+        raw, raw_len, _, raw_ok = _load_padded([p if p.exists() else None for p in raw_paths], rate_expect=rate)
+    if nat.dtype != raw.dtype:
+        # an int16 image must never mix with float32: promote the int16 side
+        if nat.dtype == np.int16:
+            nat = pcm.i16_to_f32(nat)
+        if raw.dtype == np.int16:
+            raw = pcm.i16_to_f32(raw)
+
+    S = len(names)
+    N = max(1, max(len(s) for s in synts_per_seg))
+    N = ((N + 15) // 16) * 16  # bucket the syntagme axis too
+    win_nat = np.zeros((S, N, 2), np.int32)
+    win_raw = np.zeros((S, N, 2), np.int32)
+    mask = np.zeros((S, N), bool)
+    raw_slice_empty = np.zeros((S, N), bool)
+    for i, synts in enumerate(synts_per_seg):
+        for j, syn in enumerate(synts):
+            i0 = _ms_to_samp(syn.start_ms, rate)
+            i1 = _ms_to_samp(syn.end_ms, rate)
+            i0n, i1n = min(i0, int(nat_len[i])), min(i1, int(nat_len[i]))
+            win_nat[i, j] = (i0n, max(i1n, i0n))
+            # raw slice at natural times; empty → whole raw file
+            r0, r1 = min(i0, int(raw_len[i])), min(i1, int(raw_len[i]))
+            if r1 <= r0 or not raw_ok[i]:
+                raw_slice_empty[i, j] = True
+                win_raw[i, j] = (0, int(raw_len[i]))
+            else:
+                win_raw[i, j] = (r0, r1)
+            mask[i, j] = True
+
+    # a missing raw file falls back to the natural slice (reference
+    # Code/audioPipeline.py:506-509): point its raw windows at the natural
+    # signal
+    raw_for_device = raw if raw_ok.all() else raw.copy()
+    raw_len_dev = raw_len.copy()
+    win_raw_dev = win_raw.copy()
+    T2 = raw.shape[1]
+    if (~raw_ok).any():
+        if nat.shape[1] > T2:
+            raw_for_device = np.zeros((S, nat.shape[1]), raw.dtype)
+            raw_for_device[:, :T2] = raw
+        for i in range(S):
+            if not raw_ok[i]:
+                raw_for_device[i, : int(nat_len[i])] = nat[i, : int(nat_len[i])]
+                raw_for_device[i, int(nat_len[i]) :] = 0
+                raw_len_dev[i] = nat_len[i]
+                win_raw_dev[i] = win_nat[i]
+
+    return PreparedVoice(
+        names=names,
+        raw_seqs=raw_seqs,
+        synts_per_seg=synts_per_seg,
+        nat=nat,
+        nat_len=nat_len,
+        rate=rate,
+        raw_ok=raw_ok,
+        raw_len=raw_len,
+        raw_for_device=raw_for_device,
+        raw_len_dev=raw_len_dev,
+        win_nat=win_nat,
+        win_raw=win_raw,
+        win_raw_dev=win_raw_dev,
+        mask=mask,
+        raw_slice_empty=raw_slice_empty,
+    )
+
+
+def run_measure_device(prep: PreparedVoice, pp: PitchParams, device="cuda"):
+    """The two device passes (natural side, then raw side), eager on one
+    stream. Returns the six host arrays (p_syn, p_seg, l_nat_syn,
+    l_nat_seg, l_raw_syn, l_raw_seg)."""
+    dev = resolve_device(device)
+    dsp_precision()
+
+    def put(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=dev, dtype=dtype, non_blocking=False)
+
+    rate = float(prep.rate)
+    with phase("measure/device/to_device"):
+        nat = put(prep.nat)
+        nat_len = put(prep.nat_len, torch.int64)
+        win_nat = put(prep.win_nat, torch.int64)
+        mask = put(prep.mask)
+        raw = put(prep.raw_for_device)
+        raw_len = put(prep.raw_len_dev, torch.int64)
+        win_raw = put(prep.win_raw_dev, torch.int64)
+    with phase("measure/device/nat"):
+        nat_out = measure_nat(nat, nat_len, win_nat, mask, rate, int(prep.nat.shape[1]), pp)
+    with phase("measure/device/raw"):
+        raw_out = measure_raw(raw, raw_len, win_raw, rate, int(prep.raw_for_device.shape[1]))
+    with phase("measure/device/wait"):
+        return tuple(o.cpu().numpy() for o in (*nat_out, *raw_out))
+
+
+def postprocess_voice(prep: PreparedVoice, outputs, settings: ProsodySettings) -> MeasureResult:
+    """Segment stats, baselines, adjustments and smoothing, on the host."""
+    p_syn, p_seg, l_nat_syn, l_nat_seg, l_raw_syn, l_raw_seg = outputs
+    names, raw_seqs, synts_per_seg = prep.names, prep.raw_seqs, prep.synts_per_seg
+    nat_len, raw_len, raw_ok, rate = prep.nat_len, prep.raw_len, prep.raw_ok, prep.rate
+    win_nat, win_raw, win_raw_dev = prep.win_nat, prep.win_raw, prep.win_raw_dev
+
+    # segment stats + baselines (Code/audioPipeline.py:363-424)
+    seg_stats: list[SegmentStat] = []
+    for i, name in enumerate(names):
+        wc = sum(1 for k, t, _ in raw_seqs[i] if k == "word" and t and t.strip())
+        d_nat = float(nat_len[i]) / rate or 1e-4
+        d_syn = (float(raw_len[i]) / rate or 1e-4) if raw_ok[i] else d_nat
+        l_syn_seg_val = float(l_raw_seg[i]) if raw_ok[i] else float(l_nat_seg[i])
+        rate_ratio = (wc / d_nat) / (wc / d_syn) if wc > 0 and d_syn > 0 else 1.0
+        seg_stats.append(
+            SegmentStat(
+                segment=name, p_nat=float(p_seg[i]), l_nat=float(l_nat_seg[i]), l_syn=l_syn_seg_val,
+                d_nat=d_nat, d_syn=d_syn, wc=wc, rate_ratio=rate_ratio,
+            )
+        )
+    baselines = segment_baselines(
+        np.array([s.p_nat for s in seg_stats]),
+        np.array([s.l_nat for s in seg_stats]),
+        np.array([s.rate_ratio for s in seg_stats]),
+        settings.baseline_window,
+    )
+
+    # per-syntagme raw adjustments over the flat row axis
+    # (Code/audioPipeline.py:437-589)
+    meta = [(i, j, syn) for i, synts in enumerate(synts_per_seg) for j, syn in enumerate(synts)]
+    if not meta:
+        return MeasureResult(rows=[], seg_stats=seg_stats, baselines=baselines)
+    idx_i = np.array([m[0] for m in meta])
+    idx_j = np.array([m[1] for m in meta])
+    pause_s = np.array([m[2].pause_ms for m in meta], np.float64) / 1000.0
+    wc_syn = np.array([m[2].word_count for m in meta], np.float64)
+    nat_total = (win_nat[idx_i, idx_j, 1] - win_nat[idx_i, idx_j, 0]) / rate
+    nat_total = np.where(nat_total == 0, 1e-4, nat_total)
+    empty = prep.raw_slice_empty[idx_i, idx_j]
+    raw_present = raw_ok[idx_i]
+    eff_win_raw = np.where(empty[:, None], win_raw_dev[idx_i, idx_j], win_raw[idx_i, idx_j])
+    syn_total = (eff_win_raw[:, 1] - eff_win_raw[:, 0]) / rate
+    # a decoded raw file whose window lies past its end: the reference's
+    # get_part_duration gives 1e-4 for the empty slice
+    syn_total = np.where(empty & raw_present, 1e-4, syn_total)
+    syn_total = np.where(syn_total == 0, 1e-4, syn_total)
+    d_nat = np.maximum(nat_total - pause_s, 1e-4)
+    d_syn = np.maximum(syn_total - pause_s, 1e-4)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32))
+
+    p_pct = pitch_adjust_pct(
+        f32(p_syn[idx_i, idx_j]), f32(baselines["f0"][idx_i]), settings.pitch_semitones, settings.pitch_lower_clip_factor
+    )
+    v_pct = volume_adjust_pct(f32(baselines["loud"][idx_i]), f32(l_raw_syn[idx_i, idx_j]), settings.volume_pct)
+    r_pct = rate_adjust_pct(f32(wc_syn), f32(d_nat), f32(d_syn), settings)
+    # smoothing across the whole voice (Code/audioPipeline.py:592-602)
+    sm_p = smooth_series(p_pct.numpy(), settings.smoothing_alpha, settings.max_jump_percent).numpy()
+    sm_r = smooth_series(r_pct.numpy(), settings.smoothing_alpha, settings.max_jump_percent).numpy()
+    p_pct, v_pct, r_pct = p_pct.numpy(), v_pct.numpy(), r_pct.numpy()
+
+    rows = [
+        MeasureRow(
+            segment=names[i],
+            syntagme=syn.words,
+            pause=int(syn.pause_ms),
+            raw_pitch=float(p_pct[k]),
+            raw_volume=float(v_pct[k]),
+            raw_rate=float(r_pct[k]),
+            pitch_smooth=float(sm_p[k]),
+            rate_smooth=float(sm_r[k]),
+        )
+        for k, (i, j, syn) in enumerate(meta)
+    ]
+    return MeasureResult(rows=rows, seg_stats=seg_stats, baselines=baselines)
+
+
+def measure_voice(
+    seg_files: list[Path],
+    textgrid_dir: Path,
+    raw_audio_dir: Path,
+    settings: ProsodySettings,
+    pitch_params: PitchParams | None = None,
+    clean_word=None,
+    pos_of_factory=None,
+    device="cuda",
+) -> MeasureResult:
+    """The measure stage of one voice (SSML emission is in
+    ``core.pipeline``)."""
+    resolve_device(device)
+    pp = pitch_params or PitchParams()
+    with phase("measure/prepare"):
+        prep = prepare_voice(seg_files, textgrid_dir, raw_audio_dir, settings, clean_word, pos_of_factory)
+    with phase("measure/device"):
+        outputs = run_measure_device(prep, pp, device)
+    with phase("measure/postprocess"):
+        return postprocess_voice(prep, outputs, settings)

@@ -49,3 +49,9 @@ def corpus_wavs():
     if not d.is_dir():
         pytest.skip("bundled corpus not available")
     return sorted(d.glob("*.wav"), key=lambda p: int("".join(filter(str.isdigit, p.stem))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the PyTorch port's kernels); skips without one"
+    )

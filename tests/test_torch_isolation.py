@@ -1,0 +1,92 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, names neither in its sources, and its entry points run on CUDA by
+default — raising, not falling back, on a host without a card."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "prosody_control_french_tts_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        "prosody_control_french_tts_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py")
+        if p.name != "__init__.py"
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert len(mods) >= 15
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'prosody_control_french_tts_tpu' or m.startswith('prosody_control_french_tts_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_sources_name_neither_jax_nor_the_jax_package():
+    pat = re.compile(r"\bjax\b|prosody_control_french_tts_tpu(?!_torch)")
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h")]
+    assert any(p.suffix == ".cu" for p in files)
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in files for i, line in enumerate(p.read_text().splitlines(), 1) if pat.search(line)]
+    assert not hits, hits
+
+
+def test_chip_smoke_imports_neither():
+    """chip_smoke.py names the TPU kernels it replaces, but imports nothing
+    of JAX or the JAX package."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|prosody_control_french_tts_tpu)\b(?!_torch)", text, re.M)
+    assert "prosody_control_french_tts_tpu_torch" in text
+
+
+def test_default_device_raises_without_cuda(tmp_path):
+    """Every entry point defaults to CUDA; on a host without a card the call
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.core.pipeline import measure_and_build_ssml
+    from prosody_control_french_tts_tpu_torch.ops.loudness import integrated_loudness
+    from prosody_control_french_tts_tpu_torch.ops.pitch import praat_pitch
+    from prosody_control_french_tts_tpu_torch.prosody.adjust import ProsodySettings
+    from prosody_control_french_tts_tpu_torch.prosody.measure import measure_voice
+
+    x = np.zeros(44100, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        praat_pitch(x, 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        integrated_loudness(x, 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_voice([], tmp_path, tmp_path, ProsodySettings())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_and_build_ssml([], tmp_path, tmp_path, tmp_path, ProsodySettings(), "v", 1.0)
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes its plain version only for CPU tensors; a tensor
+    elsewhere goes to the kernel or raises."""
+    from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+
+    meta = torch.empty((4, 297), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        candidates.topk_parabolic(meta, 14, 72, 295, 0.45)
+    m3 = torch.empty((1, 4, 15), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        viterbi.viterbi_path(m3, m3, m3.bool(), m3, 0.1, 0.2)
