@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's measure-and-SSML step on one CUDA card.
+"""Drive the PyTorch port on one CUDA card: the measure-and-SSML step and the
+LLM serving path.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,15 +10,27 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
    (``nvcc``, into ``build/torch_kernels/``);
 2. synthesises a full-width voice from the seed (10 segments of 8–23 s at
    44.1 kHz, word TextGrids, a raw rendering of each segment) and runs
-   ``measure_and_build_ssml(..., device="cuda")`` with the kernels' launch
-   counts set to 0 just before and read just after;
-3. checks the result: finite rows, the three CSVs, every kernel launched,
+   ``measure_and_build_ssml(..., device="cuda")`` with kernel A's and B's
+   launch counts set to 0 just before and read just after;
+3. checks that result: finite rows, the three CSVs, every kernel launched,
    a 200 Hz tone read as 200 Hz, and a small voice measured on the card
    agreeing with the plain PyTorch path on the CPU;
-4. holds each kernel against its plain PyTorch version on the slice's own
-   full-width tensors (kernel A within 1e-6, kernel B exactly);
-5. times each kernel, its plain version and, where one exists, one PyTorch
-   library call computing the same function, with CUDA events.
+4. serves the LLM at the full width of ``LLMConfig.qwen25_7b()`` in
+   bfloat16, weights made on the card from the seed: ``fuse_decode_params``
+   then ``greedy_generate_fused`` (16 prompts of 64 tokens, 128 new tokens),
+   with kernel F's launch count set to 0 just before and read just after
+   (layers × 127), cold and warm, and checks the tokens;
+5. serves the JAX bench's geometry (12 layers, dim 896; 64 prompts of 64
+   tokens, 256 new) in bfloat16 and with the int8b weight stream, and holds
+   the int8b tree's tokens against its dequantized tree's in float32;
+6. runs the two-stage cascade with tiny models on the card and on the CPU;
+7. holds each kernel against its plain PyTorch version on the paths' own
+   tensors (A within 1e-6, B exactly, F within 2e-2 in bfloat16 and 2e-5 in
+   float32);
+8. times each kernel, its plain version and, where one exists, one PyTorch
+   library call computing the same function (A and B with CUDA events; F by
+   its kernels' durations under torch.profiler, because the host's launch
+   overhead exceeds the kernel's time).
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -28,6 +41,7 @@ exits non-zero at once and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import csv
 import json
 import subprocess
@@ -41,7 +55,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 TOL_A = 1e-6  # kernel A vs plain: |lag_f|, |strength| (valid exact)
 TOL_B = 0.0  # kernel B vs plain: f0 equal in every frame
+TOL_F_BF16 = 2e-2  # kernel F vs plain, bfloat16: |err| <= tol + tol * |plain|
+TOL_F_F32 = 2e-5  # kernel F vs plain, the same tensors upcast to float32
 FULL_SEGMENTS = 10  # the full-width voice: 10 segments of 8–23 s
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # H100 SXM dense peaks
 
 KERNEL_A = dict(
     name="pitch_candidates",
@@ -54,6 +71,12 @@ KERNEL_B = dict(
     route="cuda",
     source="prosody_control_french_tts_tpu_torch/csrc/viterbi.cu",
     replaces="prosody_control_french_tts_tpu/ops/viterbi_pallas.py:180",
+)
+KERNEL_F = dict(
+    name="decode_attn",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/decode_attn.cu",
+    replaces="prosody_control_french_tts_tpu/ops/decode_attn.py:73",
 )
 
 
@@ -82,10 +105,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 class Capture:
-    """Wrap a module function to keep the arguments of its calls."""
+    """Wrap a module function to keep the arguments of its calls (the last
+    ``keep`` of them, or all)."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.orig, self.calls = module, name, getattr(module, name), []
+    def __init__(self, module, name, keep=None):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.calls = collections.deque(maxlen=keep)
 
     def __enter__(self):
         def wrapper(*a, **k):
@@ -99,10 +124,9 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def profile_measure(fn) -> dict:
-    """One warm measure step under torch.profiler: wall time, the device
-    time of every kernel and copy (one stream, so they do not overlap: busy
-    share = their sum / wall) and the heaviest of them by name."""
+def profile_device(fn):
+    """fn() under torch.profiler → (wall ms, {kernel or copy name: [device
+    ms, count]}). One stream, so device times do not overlap."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -118,6 +142,36 @@ def profile_measure(fn) -> dict:
         slot = by_name.setdefault(ev.name[:90], [0.0, 0])
         slot[0] += ev.time_range.elapsed_us() / 1e3
         slot[1] += 1
+    return wall_ms, by_name
+
+
+def device_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of one fn(): the summed durations of every kernel
+    and copy that ``reps`` calls launch (torch.profiler), over ``reps``. Host
+    gaps between launches do not count, so a wrapper whose Python overhead
+    exceeds its kernel's time is still timed by its kernel."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    _, by_name = profile_device(run)
+    total = sum(t for t, _ in by_name.values())
+    if total <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    return total / reps
+
+
+def profile_measure(fn) -> dict:
+    """One warm measure step under torch.profiler: wall time, the device
+    time of every kernel and copy (busy share = their sum / wall) and the
+    heaviest of them by name."""
+    wall_ms, by_name = profile_device(fn)
     device_ms = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {
@@ -131,6 +185,374 @@ def profile_measure(fn) -> dict:
 def read_csv(path):
     with open(path, newline="", encoding="utf-8") as f:
         return list(csv.DictReader(f))
+
+
+# ---------------------------------------------------------------------------
+# the LLM serving path
+# ---------------------------------------------------------------------------
+
+FRENCH = [
+    "Le portrait du compositeur est accroché au mur du salon.",
+    "Elle marche lentement, puis elle s'arrête devant la porte.",
+    "Bonjour, comment allez-vous aujourd'hui ?",
+    "Le train de nuit arrive à Paris vers six heures du matin.",
+    "Nous avons mangé du pain, du fromage et des pommes.",
+]
+
+
+def random_fused_tree(cfg, seed: int):
+    """The training-layout model made on the card from the seed, lora_b given
+    values so the fold does work, fused to the bfloat16 serving tree; the
+    model is freed before returning."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    model = llm.DecoderLM(cfg, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, par in model.named_parameters():
+            if name.endswith("lora_b"):
+                par.normal_(0.0, 0.02, generator=gen)
+    train_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    fp = llm.fuse_decode_params(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return fp, train_bytes
+
+
+def serve(fp, cfg, prompt, new: int, eos_id=None):
+    """One greedy_generate_fused call → (tokens, wall seconds to the end of
+    the device's work)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = llm.greedy_generate_fused(fp, cfg, prompt, new, eos_id=eos_id, device="cuda")
+    torch.cuda.synchronize()
+    return toks, time.perf_counter() - t0
+
+
+def check_served_tokens(fp, cfg, prompt, toks, new: int) -> None:
+    """Token ids in [0, vocab), the prompt copied through, and the first
+    generated token equal to the argmax of a separate last-position prefill."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    B, P = prompt.shape
+    if toks.shape != (B, P + new) or toks.dtype != torch.int32 or not toks.is_cuda:
+        raise SystemExit(f"served tokens: shape {tuple(toks.shape)} dtype {toks.dtype} on {toks.device}")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise SystemExit("served tokens outside [0, vocab)")
+    pr = torch.as_tensor(prompt, device="cuda")
+    if not torch.equal(toks[:, :P], pr.to(torch.int32)):
+        raise SystemExit("the prompt was not copied through")
+    caches = llm.init_kv_caches_fused(cfg, B, P + new, fp["embed"].dtype, "cuda")
+    positions = torch.arange(P, device="cuda").expand(B, P)
+    logits, _ = llm._fused_forward(fp, cfg, pr.to(torch.int32), positions, caches, 0, last_only=True)
+    if not torch.isfinite(logits).all():
+        raise SystemExit("prefill logits are not finite")
+    if not torch.equal(logits[:, -1].argmax(-1).to(torch.int32), toks[:, P]):
+        raise SystemExit("first generated token differs from the separate prefill's argmax")
+
+
+def profile_decode_steps(fp, cfg, tokens, steps: int = 8) -> dict:
+    """The last ``steps`` decode steps of a finished call, replayed teacher-
+    forced under torch.profiler: per-step wall and device time split into
+    matrix products, kernel F, other kernels (elementwise, reductions,
+    indexing), copies, and the host gap (wall − device)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    B, S = tokens.shape
+    start = S - 1 - steps
+    caches = llm.init_kv_caches_fused(cfg, B, S, fp["embed"].dtype, "cuda")
+    llm._fused_forward(fp, cfg, tokens[:, :start], torch.arange(start, device="cuda").expand(B, start), caches, 0, last_only=True)
+
+    def run():
+        for pos in range(start, start + steps):
+            positions = torch.full((B, 1), pos, device="cuda")
+            logits, _ = llm._fused_forward(fp, cfg, tokens[:, pos : pos + 1], positions, caches, pos)
+            logits[:, -1].argmax(-1)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, by_name = profile_device(run)
+    split = {"matmul": 0.0, "kernel_F": 0.0, "other_kernels": 0.0, "copies": 0.0}
+    f_launches = 0
+    for name, (ms, n) in by_name.items():
+        low = name.lower()
+        if "decode_attn_kernel" in low:
+            split["kernel_F"] += ms
+            f_launches += n
+        elif any(w in low for w in ("gemm", "gemv", "cutlass", "cublas", "xmma", "nvjet", "splitk", "wgmma")):
+            split["matmul"] += ms
+        elif "memcpy" in low or "memset" in low:
+            split["copies"] += ms
+        else:
+            split["other_kernels"] += ms
+    device_ms = sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "steps": steps,
+        "step_wall_ms": plain_wall_ms / steps,
+        "step_wall_ms_profiled": wall_ms / steps,
+        "step_device_ms": device_ms / steps,
+        "device_busy_share": device_ms / wall_ms,
+        "host_gap_ms_per_step_profiled": (wall_ms - device_ms) / steps,
+        "per_step_ms": {k: v / steps for k, v in split.items()},
+        "kernel_F_share_of_device": split["kernel_F"] / device_ms if device_ms else None,
+        "kernel_F_ms_per_launch": split["kernel_F"] / f_launches if f_launches else None,
+        "kernels_per_step": sum(n for _, n in by_name.values()) / steps,
+        "top_device_ms": [[k, round(t, 4), n] for k, (t, n) in top],
+    }
+
+
+def explain_mismatches(ref_tree, cfg, got, ref) -> int:
+    """Rows where two greedy runs differ: at the first differing position
+    the reference tree's logits of the two candidate tokens must be a near
+    tie (within 1e-4 of the largest |logit|), else the runs truly disagree.
+    Returns the number of such rows."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    rows = (got != ref).any(dim=1).nonzero()[:, 0].tolist()
+    for r in rows:
+        j = int((got[r] != ref[r]).nonzero()[0, 0])
+        caches = llm.init_kv_caches_fused(cfg, 1, j, ref_tree["embed"].dtype, "cuda")
+        logits, _ = llm._fused_forward(ref_tree, cfg, ref[r : r + 1, :j], torch.arange(j, device="cuda")[None], caches, 0, last_only=True)
+        lg = logits[0, -1]
+        gap = float((lg[int(got[r, j])] - lg[int(ref[r, j])]).abs())
+        if gap > 1e-4 * float(lg.abs().max()):
+            raise SystemExit(f"int8b vs dequantized: row {r} differs at {j} with a logit gap of {gap}")
+    return len(rows)
+
+
+def check_kernel_f(call, label: str) -> float:
+    """Kernel F against its plain version on a captured call's tensors, at
+    the call's own (late) pos and at pos 0, in the working dtype and upcast
+    to float32; and rows beyond pos set to ±1e4 change nothing. Returns the
+    working-dtype max |err|."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import decode_attn
+
+    (q, kc, vc, pos, kv), _ = call
+    worst = {}
+    for name, tol, cast in (("bf16", TOL_F_BF16, lambda t: t), ("f32", TOL_F_F32, lambda t: t.float())):
+        qq, kk, vv = cast(q), cast(kc), cast(vc)
+        worst[name] = 0.0
+        for p_ in (pos, 0):
+            got = decode_attn.decode_attention(qq, kk, vv, p_, kv).float()
+            torch.cuda.synchronize()
+            want = decode_attn.decode_attention_plain(qq, kk, vv, p_, kv).float()
+            diff = (got - want).abs()
+            if not torch.isfinite(got).all() or bool((diff > tol + tol * want.abs()).any()):
+                raise SystemExit(f"kernel F ({label}, {name}, pos {p_}): max |err| {float(diff.max())} beyond {tol}")
+            worst[name] = max(worst[name], float(diff.max()))
+    half = pos // 2
+    base = decode_attn.decode_attention(q, kc, vc, half, kv)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, half + 1 :] = 1e4
+    vc2[:, half + 1 :] = -1e4
+    if not torch.equal(base, decode_attn.decode_attention(q, kc2, vc2, half, kv)):
+        raise SystemExit(f"kernel F ({label}): rows beyond pos changed the result")
+    print(f"check: decode_attn {label} q {tuple(q.shape)} {str(q.dtype)[6:]} caches {tuple(kc.shape)} pos {pos} and 0: "
+          f"max |err| {worst['bf16']:.3e} (tol {TOL_F_BF16}), upcast to float32 {worst['f32']:.3e} (tol {TOL_F_F32}); future rows ignored")
+    return worst["bf16"]
+
+
+def time_kernel_f(call) -> dict:
+    """Device times (torch.profiler, see device_ms) of kernel F, its plain
+    version and one scaled_dot_product_attention call on the unpacked view
+    (rows 0..pos), on a captured call's tensors. The decode loop streams the
+    whole weight tree between two launches, so the caches are cold in L2
+    there: the timed loop rotates over enough copies of the caches to exceed
+    the 50 MB L2. ``events_ms`` is the same loop between two CUDA events: wall
+    time per call, host launch overhead included."""
+    import torch
+    import torch.nn.functional as F
+
+    from prosody_control_french_tts_tpu_torch.ops import decode_attn
+
+    (q, kc, vc, pos, kv), _ = call
+    B, H, hd = q.shape
+    n = pos + 1
+    item = q.element_size()
+    nbytes = 2 * B * n * kv * hd * item + 2 * B * H * hd * item
+    flops = 4 * B * H * n * hd
+    copies = max(2, int(120e6 // (2 * kc.numel() * item)) + 1)
+    ks = [kc.clone() for _ in range(copies)]
+    vs = [vc.clone() for _ in range(copies)]
+    views = [(k[:, :n].view(B, n, kv, hd).transpose(1, 2), v[:, :n].view(B, n, kv, hd).transpose(1, 2)) for k, v in zip(ks, vs)]
+    q4 = q[:, :, None, :]
+    try:
+        F.scaled_dot_product_attention(q4, *views[0], enable_gqa=True)
+        sdpa = lambda k4, v4: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)  # noqa: E731
+    except TypeError:  # a PyTorch without enable_gqa: repeat the KV heads outside the timed call
+        views = [(k4.repeat_interleave(H // kv, dim=1), v4.repeat_interleave(H // kv, dim=1)) for k4, v4 in views]
+        sdpa = lambda k4, v4: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+    turn = [0]
+
+    def rotating(fn, args):
+        def run():
+            turn[0] += 1
+            return fn(*args[turn[0] % copies])
+
+        return run
+
+    pairs = list(zip(ks, vs))
+    kernel = rotating(lambda k, v: decode_attn.decode_attention(q, k, v, pos, kv), pairs)
+    ms = device_ms(kernel, reps=100)
+    events_ms = cuda_ms(kernel, reps=200, warmup=5)
+    plain_ms = device_ms(rotating(lambda k, v: decode_attn.decode_attention_plain(q, k, v, pos, kv), pairs), reps=20)
+    lib_ms = device_ms(rotating(sdpa, views), reps=100)
+    hot_ms = device_ms(lambda: decode_attn.decode_attention(q, kc, vc, pos, kv), reps=100)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bf16" if item == 2 else "f32"] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, hot_l2_ms=hot_ms, events_ms=events_ms, bytes=nbytes, flops=flops,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=dict(B=B, H=H, kv_heads=kv, hd=hd, S=kc.shape[1], pos=pos, dtype=str(q.dtype)[6:]))
+
+
+def llm_phases(args, card: str) -> dict:
+    """Phases 4–6 of the module docstring, and kernel F's check and timing
+    on the tensors those paths gave it. Returns kernel F's row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import cascade, llm, quant
+    from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from prosody_control_french_tts_tpu_torch.ops import decode_attn
+
+    rng = np.random.default_rng(args.seed)
+
+    # -- 4. LLM serving at the full width of qwen25_7b ----------------------
+    cfg = llm.LLMConfig.qwen25_7b()  # full width and full depth
+    B, P, NEW = 16, 64, 128
+    t0 = time.perf_counter()
+    fp, train_bytes = random_fused_tree(cfg, args.seed)
+    torch.cuda.synchronize()
+    print(f"llm 7B: dim {cfg.dim}, {cfg.layers} layers, {cfg.heads} heads, {cfg.kv_heads} KV heads, hd {cfg.head_dim}, ffn {cfg.ffn}, "
+          f"vocab {cfg.vocab_size}; float32 training tree {train_bytes / 1e9:.2f} GB -> fused bf16 tree {quant.quantized_bytes(fp) / 1e9:.2f} GB, "
+          f"built and fused in {time.perf_counter() - t0:.1f} s")
+    prompt = rng.integers(1, cfg.vocab_size, size=(B, P)).astype(np.int32)
+    decode_attn.launches = 0
+    with Capture(decode_attn, "decode_attention", keep=cfg.layers) as cap_7b:
+        toks, cold_s = serve(fp, cfg, prompt, NEW)
+    launches_7b = decode_attn.launches
+    want_launches = cfg.layers * (NEW - 1)
+    print(f"llm 7B main path launches: {json.dumps({'decode_attn': launches_7b})} (expected {want_launches})")
+    if launches_7b != want_launches:
+        raise SystemExit(f"kernel F launched {launches_7b} times on the 7B run, expected {want_launches}")
+    check_served_tokens(fp, cfg, prompt, toks, NEW)
+    toks_w, warm_s = serve(fp, cfg, prompt, NEW)
+    if not torch.equal(toks, toks_w):
+        raise SystemExit("7B: the warm run's tokens differ from the cold run's")
+    _, prefill_s = serve(fp, cfg, prompt, 1)
+    _, sync_s = serve(fp, cfg, prompt, NEW, eos_id=cfg.vocab_size)  # an id no row emits: the stop test runs, never fires
+    step_ms = (warm_s - prefill_s) / (NEW - 1) * 1e3
+    split_7b = profile_decode_steps(fp, cfg, toks)
+    print(f"llm 7B serving (bf16, B {B}, P {P}, new {NEW}): warm {warm_s:.3f} s, {B * NEW / warm_s:.1f} tokens/s, "
+          f"prefill {prefill_s * 1e3:.1f} ms, {step_ms:.3f} ms per decode step; cold {cold_s:.3f} s, {B * NEW / cold_s:.1f} tokens/s; "
+          f"with the per-step stop test {sync_s:.3f} s, {B * NEW / sync_s:.1f} tokens/s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; card={card}")
+    print("llm 7B decode step split: " + json.dumps(split_7b))
+    call_7b = cap_7b.calls[0]
+    err_7b = check_kernel_f(call_7b, "7B geometry")
+    time_7b = time_kernel_f(call_7b)
+    del fp, cap_7b, call_7b, toks, toks_w
+    torch.cuda.empty_cache()
+
+    # -- 5. the JAX bench's geometry, bf16 and int8b -------------------------
+    bcfg = llm.LLMConfig(vocab_size=32768, dim=896, layers=12, heads=14, kv_heads=2, ffn=2432, max_len=512, lora_rank=8)
+    B, P, NEW = 64, 64, 256
+    fp, _ = random_fused_tree(bcfg, args.seed + 2)
+    prompt = rng.integers(1, bcfg.vocab_size, size=(B, P)).astype(np.int32)
+    n0 = decode_attn.launches
+    with Capture(decode_attn, "decode_attention", keep=bcfg.layers) as cap_b:
+        toks, cold_s = serve(fp, bcfg, prompt, NEW)
+    if decode_attn.launches - n0 != bcfg.layers * (NEW - 1):
+        raise SystemExit(f"bench geometry: kernel F launched {decode_attn.launches - n0} times, expected {bcfg.layers * (NEW - 1)}")
+    check_served_tokens(fp, bcfg, prompt, toks, NEW)
+    _, warm_s = serve(fp, bcfg, prompt, NEW)
+    _, prefill_s = serve(fp, bcfg, prompt, 1)
+    split_b = profile_decode_steps(fp, bcfg, toks)
+    print(f"llm bench geometry (dim {bcfg.dim}, {bcfg.layers} layers, hd {bcfg.head_dim}; bf16, B {B}, P {P}, new {NEW}): "
+          f"warm {warm_s:.3f} s, {B * NEW / warm_s:.1f} tokens/s, {(warm_s - prefill_s) / (NEW - 1) * 1e3:.3f} ms per decode step; "
+          f"cold {cold_s:.3f} s; card={card}")
+    print("llm bench geometry decode step split: " + json.dumps(split_b))
+    call_b = cap_b.calls[0]
+    err_b = check_kernel_f(call_b, "bench geometry")
+    time_b = time_kernel_f(call_b)
+
+    t0 = time.perf_counter()
+    fq = llm.quantize_fused_decode_params(fp, mode="int8b")
+    quant_s = time.perf_counter() - t0
+    toks_q, _ = serve(fq, bcfg, prompt, NEW)
+    check_served_tokens(fq, bcfg, prompt, toks_q, NEW)
+    _, warm_q = serve(fq, bcfg, prompt, NEW)
+    # the int8b tree against the same tree dequantized, in float32 (in
+    # bfloat16 the dense path rounds every dequantized weight, the block
+    # partial sums do not, so tokens may part there by design)
+    def as_f32(w, dequantize):
+        if isinstance(w, dict):
+            if not dequantize:
+                return w
+            return quant.dequant_int8_block(w["codes"], w["scale"], torch.float32, w["codes"].shape[0] // w["scale"].shape[0])
+        return w.float()
+
+    trees = [
+        {**{k: as_f32(v, deq) for k, v in fq.items() if k != "layers"}, "layers": [{k: as_f32(v, deq) for k, v in lw.items()} for lw in fq["layers"]]}
+        for deq in (False, True)
+    ]
+    fcfg = dataclasses.replace(bcfg, dtype=torch.float32)
+    got, _ = serve(trees[0], fcfg, prompt, NEW)
+    ref, _ = serve(trees[1], fcfg, prompt, NEW)
+    near_ties = explain_mismatches(trees[1], fcfg, got, ref)
+    print(f"llm bench geometry int8b: {quant.quantized_bytes(fq) / 1e9:.3f} GB tree (bf16 {quant.quantized_bytes(fp) / 1e9:.3f} GB), "
+          f"quantized on the host in {quant_s:.1f} s; warm {warm_q:.3f} s, {B * NEW / warm_q:.1f} tokens/s; in float32 the int8b tokens equal "
+          f"the dequantized tree's in {B - near_ties} of {B} rows ({near_ties} rows part at a logit near-tie); card={card}")
+    del fp, fq, trees, cap_b, call_b
+    torch.cuda.empty_cache()
+
+    # -- 6. the cascade with tiny models, card against CPU -------------------
+    tok = WordPieceTokenizer.train(FRENCH + [cascade.format_example(cascade.TASK_A, FRENCH[0], FRENCH[0] + " <break/>")], vocab_size=250, min_freq=1)
+    ccfg = llm.LLMConfig(vocab_size=len(tok), dim=128, layers=2, heads=4, kv_heads=2, ffn=256, max_len=256, dtype=torch.float32)
+    on_cpu = [llm.DecoderLM(ccfg, device="cpu", seed=args.seed + s) for s in (10, 11)]
+    on_card = [llm.DecoderLM(ccfg, device="cuda", seed=0) for _ in on_cpu]
+    for c, g in zip(on_cpu, on_card):
+        g.load_state_dict(c.state_dict())
+        if not all(t.is_cuda for t in g.state_dict().values()):
+            raise SystemExit("cascade: a model tensor is not on the card")
+    t0 = time.perf_counter()
+    text_card = cascade.run_cascade(*on_card, tok, FRENCH[1], device="cuda")
+    card_s = time.perf_counter() - t0
+    text_cpu = cascade.run_cascade(*on_cpu, tok, FRENCH[1], device="cpu")
+    if not isinstance(text_card, str) or not text_card or text_card != text_cpu:
+        raise SystemExit(f"cascade: card {text_card!r} != CPU {text_cpu!r}")
+    print(f"cascade: two tiny float32 stages (vocab {len(tok)}), 2 x 128 new tokens on the card in {card_s:.2f} s; "
+          f"the card's string ({len(text_card)} chars) equals the CPU's")
+
+    row = dict(KERNEL_F, launches=launches_7b, max_abs_err=err_7b, **{k: time_7b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+               check="pass", hot_l2_ms=time_7b["hot_l2_ms"], events_ms=time_7b["events_ms"], shape=time_7b["shape"],
+               bench_geometry=dict(time_b, max_abs_err=err_b, launches=bcfg.layers * (NEW - 1)))
+    for label, t, n, err in (("7B geometry", time_7b, launches_7b, err_7b), ("bench geometry", time_b, bcfg.layers * (NEW - 1), err_b)):
+        print(f"kernel decode_attn ({label} {json.dumps(t['shape'])}): ms={t['ms']:.4f} (L2-hot {t['hot_l2_ms']:.4f}, between events with host overhead {t['events_ms']:.4f}) launches={n} "
+              f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: {t['bytes']} bytes, {t['flops']} flops) plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} max_abs_err={err:.3e} card={card}")
+    return row
 
 
 def main() -> int:
@@ -237,7 +659,7 @@ def main() -> int:
             raise SystemExit(f"small voice: card vs CPU differ by {small_err} points")
         print(f"reference: 200 Hz tone -> {tone_med:.3f} Hz; small voice card vs CPU max |diff| {small_err:.2e} points")
 
-    # -- 4. kernel vs plain on the slice's own tensors ---------------------
+    # -- 7. kernels A and B vs plain on the measure path's own tensors ------
     (r, k, min_lag, max_lag, vth), _ = cap_a.calls[0]
     (delta, lf, voiced, freq, vuv, jump), _ = cap_b.calls[0]
     got_a = candidates.topk_parabolic(r, k, min_lag, max_lag, vth)
@@ -255,7 +677,7 @@ def main() -> int:
     print(f"check: pitch_candidates r {tuple(r.shape)} max |err| {err_a:.3e} (tol {TOL_A}); "
           f"viterbi {tuple(delta.shape)} max |err| {err_b} (exact)")
 
-    # -- 5. timing ---------------------------------------------------------
+    # -- 8. timing of A and B ----------------------------------------------
     R, L = r.shape
     bytes_a = R * L * 4 + R * k * (4 + 4 + 1)
     lag = torch.arange(L, device=dev)
@@ -282,6 +704,8 @@ def main() -> int:
         print(f"kernel {spec['name']}: ms={ms:.4f} launches={n} bound_ms={bound:.5f} (bytes {nbytes}) "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
               f"max_abs_err={err:.3e} card={card}")
+
+    rows_out.append(llm_phases(args, card))
 
     print(f"measure step (warm): wall {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s; card={card}")
     print("phases warm: " + json.dumps({k2: round(v, 4) for k2, v in sorted(warm_phases.items())}))

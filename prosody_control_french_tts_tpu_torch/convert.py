@@ -6,13 +6,23 @@ typed (the JAX package is never imported), and build this port's
 dataclasses; a field the port does not know raises, so a parameter can
 never be dropped silently.
 
+The LLM's weights cross as trees of numpy arrays keyed as the flax tree is
+(``params/layer_i/attn/q/{kernel,bias,lora_a,lora_b}``, ``kernel_q`` /
+``kernel_scale`` for quantized trees, ``embed/embedding``, ``ln_f/scale``,
+``lm_head/kernel``). Kernels are ``[in, out]`` on both sides, so every leaf
+is copied and none is transposed; a leaf the port does not know raises.
+
 Later slices add here the ``.npz`` → ``state_dict`` converters of the JAX
-package's packaged checkpoints (the break tagger, the aligners, the LLM).
+package's packaged checkpoints (the break tagger, the aligners).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+
+import numpy as np
+import torch
 
 from .ops.pitch import PitchParams
 from .prosody.adjust import ProsodySettings
@@ -44,3 +54,91 @@ def prosody_settings_from_jax(obj) -> ProsodySettings:
     """The port's ProsodySettings with every field of the JAX
     ``ProsodySettings``."""
     return _convert(obj, ProsodySettings)
+
+
+# ---------------------------------------------------------------------------
+# LLM weights
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a) -> torch.Tensor:
+    """numpy leaf → torch tensor of the same dtype (bfloat16 numpy arrays,
+    which torch cannot read directly, go through their 16-bit pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+_PROJ_LEAVES = ("kernel", "kernel_q", "kernel_scale", "bias", "lora_a", "lora_b")
+_LLM_LEAF = re.compile(
+    r"layer_(\d+)/(?:(attn)/(q|k|v|o)|(mlp)/(gate|up|down))/(%s)$|layer_(\d+)/(ln1|ln2)/scale$" % "|".join(_PROJ_LEAVES)
+)
+
+
+def llm_params_from_jax(tree: dict, cfg) -> dict:
+    """Flax ``DecoderLM`` tree of numpy arrays (with or without the outer
+    ``params``) → the ``state_dict`` of this port's ``DecoderLM(cfg)``."""
+    flat = _flatten(tree["params"] if "params" in tree else tree)
+    fixed = {"embed/embedding": "embed.embedding", "ln_f/scale": "ln_f.scale", "lm_head/kernel": "lm_head.kernel"}
+    out = {}
+    for key, val in flat.items():
+        m = _LLM_LEAF.match(key)
+        if key in fixed:
+            name = fixed[key]
+        elif m is None:
+            raise ValueError(f"llm_params_from_jax: unknown leaf {key!r}")
+        elif m.group(7) is not None:
+            if int(m.group(7)) >= cfg.layers:
+                raise ValueError(f"llm_params_from_jax: {key!r} is beyond the config's {cfg.layers} layers")
+            name = f"layers.{m.group(7)}.{m.group(8)}.scale"
+        else:
+            if int(m.group(1)) >= cfg.layers:
+                raise ValueError(f"llm_params_from_jax: {key!r} is beyond the config's {cfg.layers} layers")
+            name = f"layers.{m.group(1)}.{m.group(2) or m.group(4)}.{m.group(3) or m.group(5)}.{m.group(6)}"
+        out[name] = _tensor(val)
+    return out
+
+
+_FUSED_TOP = ("embed", "ln_f", "lm_head", "layers")
+_FUSED_LAYER = ("wqkv", "bqkv", "wo", "wgu", "wdown", "ln1", "ln2")
+
+
+def fused_params_from_jax(tree: dict) -> dict:
+    """The JAX package's fused serving tree of numpy arrays → this port's
+    fused tree (``models.llm.fuse_decode_params`` layout; int8 weights stay
+    ``{"codes", "scale"}`` dicts)."""
+
+    def weight(w, where):
+        if isinstance(w, dict):
+            if sorted(w) != ["codes", "scale"]:
+                raise ValueError(f"fused_params_from_jax: unknown leaves {sorted(w)} under {where!r}")
+            return {"codes": _tensor(w["codes"]), "scale": _tensor(w["scale"])}
+        return _tensor(w)
+
+    unknown = sorted(set(tree) - set(_FUSED_TOP))
+    if unknown:
+        raise ValueError(f"fused_params_from_jax: unknown leaf {unknown}")
+    layers = []
+    for i, lw in enumerate(tree["layers"]):
+        unknown = sorted(set(lw) - set(_FUSED_LAYER))
+        if unknown:
+            raise ValueError(f"fused_params_from_jax: unknown leaf {unknown} in layer {i}")
+        layers.append({k: weight(v, f"layers/{i}/{k}") for k, v in lw.items()})
+    return {
+        "embed": _tensor(tree["embed"]),
+        "ln_f": _tensor(tree["ln_f"]),
+        "lm_head": weight(tree["lm_head"], "lm_head"),
+        "layers": layers,
+    }

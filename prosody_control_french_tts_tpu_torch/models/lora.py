@@ -1,0 +1,119 @@
+"""LoRA (low-rank adaptation) for dense projections.
+
+The reference trains Qwen2.5-7B with PEFT LoRA r=8 α=16 on the
+q/k/v/o/gate/up/down projections. ``LoRALinear`` computes
+``x·W + b + (α/r)·(x·A)·B`` with A ~ N(0, 1/r), B = 0. The base kernel is
+stored ``[in, out]`` (so a checkpoint of the JAX package copies across
+without a transpose) as float32, or weight-only quantized
+(``models.quant``); bias and adapters are always float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .quant import NF4_BLOCK, dequant_int8, dequant_nf4, matmul_int8_block
+
+# standard deviation of a standard normal truncated to (-2, 2)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Fill ``t`` from a normal truncated at ±2σ with variance ``1/fan_in``
+    (inverse-CDF sampling on ``t``'s device)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    edge = math.erf(2.0 / math.sqrt(2.0))  # erfinv(±edge)·√2 = ±2
+    with torch.no_grad():
+        t.uniform_(-edge, edge, generator=generator)
+        t.erfinv_().mul_(math.sqrt(2.0) * std).clamp_(-2.0 * std, 2.0 * std)
+    return t
+
+
+class LoRALinear(nn.Module):
+    """``quant`` selects weight-only storage for the BASE kernel: ``None``
+    (float32 ``kernel``), ``"int8"`` (per channel), ``"int8b"`` (blockwise,
+    the NF4 serving layout) or ``"nf4"`` (4-bit packed). Quantized kernels
+    are buffers ``kernel_q`` + ``kernel_scale`` and are dequantized to
+    ``dtype`` in :meth:`forward`; ``int8b`` runs
+    ``quant.matmul_int8_block`` and never materialises the kernel."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        rank: int = 0,
+        alpha: float = 16.0,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.bfloat16,
+        quant: str | None = None,
+        device=None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if quant not in (None, "int8", "int8b", "nf4"):
+            raise ValueError(f"unknown quant mode {quant!r}")
+        self.in_features, self.features = in_features, features
+        self.rank, self.alpha, self.dtype, self.quant = rank, alpha, dtype, quant
+        if quant is None:
+            self.kernel = nn.Parameter(
+                lecun_normal_(torch.empty((in_features, features), dtype=torch.float32, device=device), in_features, generator)
+            )
+        else:
+            packed = quant == "nf4"
+            q_shape = (in_features // 2, features) if packed else (in_features, features)
+            s_shape = (features,) if quant == "int8" else (in_features // NF4_BLOCK, features)
+            self.register_buffer("kernel_q", torch.zeros(q_shape, dtype=torch.uint8 if packed else torch.int8, device=device))
+            self.register_buffer("kernel_scale", torch.ones(s_shape, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros((features,), dtype=torch.float32, device=device)) if use_bias else None
+        if rank > 0:
+            a = torch.empty((in_features, rank), dtype=torch.float32, device=device)
+            with torch.no_grad():
+                a.normal_(0.0, 1.0 / rank, generator=generator)
+            self.lora_a = nn.Parameter(a)
+            self.lora_b = nn.Parameter(torch.zeros((rank, features), dtype=torch.float32, device=device))
+        else:
+            self.lora_a = self.lora_b = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if self.quant == "int8b":
+            y = matmul_int8_block(x, self.kernel_q, self.kernel_scale, dt)
+        elif self.quant == "int8":
+            y = x @ dequant_int8(self.kernel_q, self.kernel_scale, dt)
+        elif self.quant == "nf4":
+            y = x @ dequant_nf4(self.kernel_q, self.kernel_scale, dt)
+        else:
+            y = x @ self.kernel.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        if self.lora_a is not None:
+            y = y + (self.alpha / self.rank) * ((x @ self.lora_a.to(dt)) @ self.lora_b.to(dt))
+        return y
+
+
+def lora_param_mask(params: dict) -> dict:
+    """Mapping of bools over a ``state_dict``: True for the LoRA adapter
+    leaves (``lora_a`` / ``lora_b``) — only adapters train, the PEFT
+    contract."""
+    return {k: k.rsplit(".", 1)[-1] in ("lora_a", "lora_b") for k in params}
+
+
+def merge_lora(params: dict) -> dict:
+    """Fold adapters into base kernels (deployment export) over a
+    ``state_dict``: ``kernel += (α/r)·A·B`` with the reference's α = 16,
+    adapters zeroed."""
+    alpha = 16.0
+    out = dict(params)
+    for key in params:
+        if not key.endswith(".lora_a"):
+            continue
+        stem = key[: -len("lora_a")]
+        if stem + "lora_b" in params and stem + "kernel" in params:
+            a, b = params[key], params[stem + "lora_b"]
+            out[stem + "kernel"] = params[stem + "kernel"] + (alpha / a.shape[-1]) * (a @ b)
+            out[key] = torch.zeros_like(a)
+            out[stem + "lora_b"] = torch.zeros_like(b)
+    return out

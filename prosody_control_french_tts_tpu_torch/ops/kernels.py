@@ -9,8 +9,8 @@ into ``build/torch_kernels/`` at the repository root (listed in
 edited source is rebuilt. Each source compiles to its own object in
 parallel, and one link makes the shared library.
 
-Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``
-and ``ops.viterbi`` take their plain PyTorch versions only for tensors on
+Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
+``ops.viterbi`` and ``ops.decode_attn`` take their plain PyTorch versions only for tensors on
 the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
@@ -28,12 +28,13 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
-SOURCES = ("pitch_candidates.cu", "viterbi.cu")
+SOURCES = ("pitch_candidates.cu", "viterbi.cu", "decode_attn.cu")
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # --fmad=false: torch rounds every multiply and add on its own; a fused
 # multiply-add in the kernels would round differently from the plain
-# versions the kernels are held against.
+# versions the kernels are held against. (decode_attn.cu, held to a tolerance,
+# asks for its fused multiply-adds explicitly with fmaf.)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "pitch_candidates_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP),
     # delta, lf, voiced, freq, back, f0, S, F, K, vuv_cost, jump_cost, stream
     "viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP),
+    # q, kc, vc, out, scores, B, S, kv_heads, group, hd, pos, scale, dtype, stream
+    "decode_attn_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I, _VP),
 }
 
 

@@ -24,7 +24,7 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert len(mods) >= 15
+    assert len(mods) >= 22
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -79,10 +79,49 @@ def test_default_device_raises_without_cuda(tmp_path):
         measure_and_build_ssml([], tmp_path, tmp_path, tmp_path, ProsodySettings(), "v", 1.0)
 
 
+def test_llm_entry_points_default_to_cuda():
+    """The LLM slice: building a model, the caches, both greedy decoders, the
+    cascade and the perplexity all default to CUDA and raise without a card;
+    the kernel wrapper runs its plain version on CPU tensors only because
+    they lie on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.models import cascade, llm, llm_eval
+    from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from prosody_control_french_tts_tpu_torch.ops.decode_attn import decode_attention
+
+    cfg = llm.LLMConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llm.DecoderLM(cfg)
+    model = llm.DecoderLM(cfg, device="cpu")
+    fp = llm.fuse_decode_params(model, cfg)
+    ids = np.ones((1, 4), np.int32)
+    tok = WordPieceTokenizer.train(["le chat dort", "le chien dort"], vocab_size=60, min_freq=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llm.greedy_generate(model, ids, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llm.greedy_generate_fused(fp, cfg, ids, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llm.init_kv_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llm.init_kv_caches_fused(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cascade.generate(model, tok, cascade.TASK_A, "le chat", max_new=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cascade.run_cascade(model, model, tok, "le chat")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llm_eval.teacher_forced_perplexity(model, ids[0], ids[0])
+    q = torch.zeros((1, 4, 64))
+    c = torch.zeros((1, 8, 128))
+    assert decode_attention(q, c, c, 0, 2).device.type == "cpu"
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper takes its plain version only for CPU tensors; a tensor
     elsewhere goes to the kernel or raises."""
-    from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+    from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, viterbi
 
     meta = torch.empty((4, 297), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -90,3 +129,7 @@ def test_wrappers_refuse_other_devices():
     m3 = torch.empty((1, 4, 15), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         viterbi.viterbi_path(m3, m3, m3.bool(), m3, 0.1, 0.2)
+    q = torch.empty((2, 14, 64), device="meta")
+    kv = torch.empty((2, 16, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attn.decode_attention(q, kv, kv, 3, 2)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, viterbi
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
 
@@ -109,6 +109,75 @@ def test_viterbi_kernel_matches_plain(cuda, shape):
     got = viterbi.viterbi_path(*args, 0.14 * 0.5, 0.35 * 0.5)
     want = viterbi.viterbi_path_plain(*args, 0.14 * 0.5, 0.35 * 0.5)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def decode_attn_inputs(B, H, KV, hd, S, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(device, dtype)
+    kc = torch.from_numpy(rng.standard_normal((B, S, KV * hd)).astype(np.float32)).to(device, dtype)
+    vc = torch.from_numpy(rng.standard_normal((B, S, KV * hd)).astype(np.float32)).to(device, dtype)
+    return q, kc, vc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "geom",
+    [
+        (4, 14, 2, 64, 96, (0, 1, 50, 95)),  # the bench geometry's head, group 7
+        (3, 28, 4, 128, 192, (0, 100, 191)),  # the 7B geometry's head, group 7
+        (2, 4, 1, 64, 48, (30,)),  # one KV head
+        (1, 8, 1, 128, 700, (0, 5, 699)),  # group 8, many passes of the block
+        (2, 10, 2, 64, 77, (31, 32, 76)),  # group 5, row counts around a pass's edge
+        (2, 6, 6, 64, 33, (32,)),  # group 1
+    ],
+)
+def test_decode_attn_kernel_matches_plain(cuda, geom, dtype, tol):
+    """On the card: kernel F within 2e-5 (float32) / 2e-2 (bfloat16) of its
+    plain version, for group sizes that are no power of two, both head
+    dims, pos = 0 and pos = S - 1."""
+    B, H, KV, hd, S, positions = geom
+    q, kc, vc = decode_attn_inputs(B, H, KV, hd, S, dtype, cuda)
+    for pos in positions:
+        got = decode_attn.decode_attention(q, kc, vc, pos, KV)
+        torch.cuda.synchronize()
+        want = decode_attn.decode_attention_plain(q, kc, vc, pos, KV)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_attn_kernel_ignores_future_rows(cuda):
+    """Rows beyond pos set to +-1e4 change nothing, bit for bit; pos = 0
+    returns the first V row per KV head."""
+    q, kc, vc = decode_attn_inputs(4, 14, 2, 64, 32, torch.float32, cuda)
+    base = decode_attn.decode_attention(q, kc, vc, 10, 2)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, 11:] = 1e4
+    vc2[:, 11:] = -1e4
+    assert torch.equal(base, decode_attn.decode_attention(q, kc2, vc2, 10, 2))
+    first = decode_attn.decode_attention(q, kc, vc, 0, 2)
+    want = vc[:, 0].reshape(4, 2, 1, 64).expand(4, 2, 7, 64).reshape(4, 14, 64)
+    torch.testing.assert_close(first, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_decode_attn_wrapper_counts_and_checks(cuda):
+    q, kc, vc = decode_attn_inputs(2, 14, 2, 64, 16, torch.bfloat16, cuda)
+    n = decode_attn.launches
+    decode_attn.decode_attention(q, kc, vc, 5, 2)
+    assert decode_attn.launches == n + 1
+    with pytest.raises(TypeError):
+        decode_attn.decode_attention(q.half(), kc.half(), vc.half(), 5, 2)
+    with pytest.raises(TypeError):
+        decode_attn.decode_attention(q, kc.float(), vc, 5, 2)
+    with pytest.raises(ValueError):
+        decode_attn.decode_attention(q, kc.transpose(0, 1).contiguous().transpose(0, 1), vc, 5, 2)
+    q32 = torch.zeros((2, 4, 32), device=cuda)
+    c32 = torch.zeros((2, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attn.decode_attention(q32, c32, c32, 5, 2)
+    assert decode_attn.launches == n + 1
 
 
 @pytest.mark.gpu
