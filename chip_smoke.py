@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA card: the measure-and-SSML step and the
-LLM serving path.
+"""Drive the PyTorch port on one CUDA card: the measure-and-SSML step, the LLM
+serving path and the LLM training path (LoRA fine-tuning).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -30,7 +30,21 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
 8. times each kernel, its plain version and, where one exists, one PyTorch
    library call computing the same function (A and B with CUDA events; F by
    its kernels' durations under torch.profiler, because the host's launch
-   overhead exceeds the kernel's time).
+   overhead exceeds the kernel's time);
+9. trains: LoRA steps at the full width and depth of
+   ``LLMConfig.qwen25_7b()`` (``attn_impl="vmem"``, ``fused_qkv``, rank 8,
+   bfloat16 frozen base, B 4, L 512, fused loss; one warm step and four more,
+   kernel G counted layers x steps forward and backward, kernel H steps each,
+   frozen leaves unchanged, losses falling), then at the JAX bench's training
+   geometry (12 layers, dim 896, B 8, L 512, ``scan_steps``);
+10. holds the loss curve of ("vmem", "fused") on the card against ("dot",
+    "dense") on the card and on the CPU at a small float32 shape (5e-4);
+11. holds kernels G and H, forward and backward, against their plain versions
+    on tensors captured from those steps and on edge shapes, shows that H
+    allocates less than an [N, V] tensor, and times the four launches, their
+    plain versions and the library calls (``scaled_dot_product_attention``,
+    ``F.cross_entropy`` of the dense logits), forward and backward, as
+    replays of CUDA graphs between CUDA events.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -60,6 +74,24 @@ TOL_F_F32 = 2e-5  # kernel F vs plain, the same tensors upcast to float32
 FULL_SEGMENTS = 10  # the full-width voice: 10 segments of 8–23 s
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # H100 SXM dense peaks
 
+# kernels G and H vs plain. Float32: sum order and expf only. bfloat16: G's
+# outputs reach a few units (one rounding of 4.0 is 1.6e-2); its backward
+# rounds ds and p to bfloat16 before the products as the TPU kernel does,
+# autograd of the plain version rounds every intermediate instead; H rounds
+# the backward's coefficients and dh to bfloat16 (2^-9 relative each).
+TOL_G_F32 = 2e-5  # forward, absolute
+TOL_G_BF16 = 5e-2  # forward, absolute
+TOL_G_GRAD_F32 = 1e-5  # dq, dk, dv: relative to the plain gradient's largest element
+TOL_G_GRAD_BF16 = 3e-2
+TOL_H_F32 = 1e-5  # rows: |err| <= tol + tol * |plain| at D 256
+TOL_H_EXTREME = 1e-4  # rows at logits scaled x12
+TOL_H_WIDE = 1e-4  # rows at full width: float32 sums of 3,584 products in another order
+TOL_H_GRAD_F32 = 1e-5  # dh at D 256: relative to the plain gradient's largest element
+TOL_H_GRAD_WIDE = 1e-4  # dh at full width, float32: sums over 152,064 columns in another order
+TOL_H_GRAD_BF16 = 2e-2
+TOL_PARITY = 5e-4  # loss curves, relative
+TRAIN_STEPS = 4  # optimizer steps after the warm one
+
 KERNEL_A = dict(
     name="pitch_candidates",
     route="cuda",
@@ -78,6 +110,20 @@ KERNEL_F = dict(
     source="prosody_control_french_tts_tpu_torch/csrc/decode_attn.cu",
     replaces="prosody_control_french_tts_tpu/ops/decode_attn.py:73",
 )
+KERNEL_G_FWD = dict(
+    name="vmem_attn_fwd",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/vmem_attn.cu",
+    replaces="prosody_control_french_tts_tpu/ops/vmem_attn.py:140",
+)
+KERNEL_G_BWD = dict(KERNEL_G_FWD, name="vmem_attn_bwd", replaces="prosody_control_french_tts_tpu/ops/vmem_attn.py:170")
+KERNEL_H_FWD = dict(
+    name="fused_ce_fwd",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/fused_ce.cu",
+    replaces="prosody_control_french_tts_tpu/ops/fused_ce.py:120",
+)
+KERNEL_H_BWD = dict(KERNEL_H_FWD, name="fused_ce_bwd", replaces="prosody_control_french_tts_tpu/ops/fused_ce.py:162")
 
 
 def card_line() -> str:
@@ -124,6 +170,23 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
+class GradCapture(Capture):
+    """Capture that also keeps the gradient that reaches each call's result
+    (``calls`` holds ``[args, grad or None]``)."""
+
+    def __enter__(self):
+        def wrapper(*a, **k):
+            out = self.orig(*a, **k)
+            rec = [a, None]
+            if out.requires_grad:
+                out.register_hook(lambda g: rec.__setitem__(1, g.detach()))
+            self.calls.append(rec)
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+
 def profile_device(fn):
     """fn() under torch.profiler → (wall ms, {kernel or copy name: [device
     ms, count]}). One stream, so device times do not overlap."""
@@ -137,7 +200,9 @@ def profile_device(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith("Activity Buffer"):
+        # device-side rows that are no kernel or copy: the profiler's own buffer
+        # requests, and the optimizer's annotation mirrored onto the stream
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith(("Activity Buffer", "Optimizer.")):
             continue
         slot = by_name.setdefault(ev.name[:90], [0.0, 0])
         slot[0] += ev.time_range.elapsed_us() / 1e3
@@ -160,11 +225,13 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
 
-    _, by_name = profile_device(run)
-    total = sum(t for t, _ in by_name.values())
-    if total <= 0:
-        raise SystemExit("torch.profiler recorded no device time")
-    return total / reps
+    for attempt in range(3):
+        _, by_name = profile_device(run)
+        total = sum(t for t, _ in by_name.values())
+        if total > 0:
+            return total / reps
+        print(f"note: torch.profiler recorded no device time (attempt {attempt + 1} of 3)")
+    raise SystemExit("torch.profiler recorded no device time")
 
 
 def profile_measure(fn) -> dict:
@@ -555,6 +622,521 @@ def llm_phases(args, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the LLM training path
+# ---------------------------------------------------------------------------
+
+
+def train_counts() -> dict:
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce, vmem_attn
+
+    return {"vmem_attn_fwd": vmem_attn.launches, "vmem_attn_bwd": vmem_attn.launches_bwd,
+            "fused_ce_fwd": fused_ce.launches, "fused_ce_bwd": fused_ce.launches_bwd}
+
+
+def reset_train_counts() -> None:
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce, vmem_attn
+
+    vmem_attn.launches = vmem_attn.launches_bwd = 0
+    fused_ce.launches = fused_ce.launches_bwd = 0
+
+
+def profile_train_steps(run, steps: int) -> dict:
+    """``run()`` (``steps`` optimizer steps) under torch.profiler: per-step
+    wall and device time split into matrix products (cuBLAS), the four
+    kernel launches of G and H, other kernels and copies."""
+    wall_ms, by_name = profile_device(run)
+    split = {"matmul": 0.0, "G_fwd": 0.0, "G_bwd": 0.0, "H_fwd": 0.0, "H_bwd": 0.0, "other_kernels": 0.0, "copies": 0.0}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        if "vmem_attn_fwd" in low:
+            split["G_fwd"] += ms
+        elif "vmem_attn_bwd" in low:
+            split["G_bwd"] += ms
+        elif "fused_ce_fwd" in low or "fused_ce_combine" in low:
+            split["H_fwd"] += ms
+        elif "fused_ce_coef" in low or "fused_ce_dh" in low:
+            split["H_bwd"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "cutlass", "cublas", "xmma", "nvjet", "splitk", "wgmma")):
+            split["matmul"] += ms
+        elif "memcpy" in low or "memset" in low:
+            split["copies"] += ms
+        else:
+            split["other_kernels"] += ms
+    device_ms = sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "steps": steps,
+        "step_wall_ms_profiled": wall_ms / steps,
+        "step_device_ms": device_ms / steps,
+        "device_busy_share": device_ms / wall_ms,
+        "per_step_ms": {k: v / steps for k, v in split.items()},
+        # the split informs, it checks nothing: a profile without device records gives no shares
+        "share_of_device": {k: v / device_ms for k, v in split.items()} if device_ms else None,
+        "kernels_per_step": sum(n for _, n in by_name.values()) / steps,
+        "top_device_ms": [[k, round(t, 4), n] for k, (t, n) in top],
+    }
+
+
+def frozen_fingerprint(model) -> dict:
+    """Float64 sums of a few frozen leaves (any change shows)."""
+    import torch
+
+    leaves = {"embed": model.embed.embedding, "layer0.q": model.layers[0].attn.q.kernel,
+              "last.down": model.layers[-1].mlp.down.kernel, "lm_head": model.lm_head.kernel, "ln_f": model.ln_f.scale}
+    return {k: float(v.detach().sum(dtype=torch.float64)) for k, v in leaves.items()}
+
+
+def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: bool):
+    """init_train + make_train_step on the card, one warm step then
+    TRAIN_STEPS more on a repeated batch; the checks of phase 9. Returns
+    (launch counts of all the steps, captured tensors for the kernel checks,
+    times, a function that profiles one more step and prints its split).
+    The split is taken last of all: once the trainers have run, torch.profiler
+    has lost kernel records in this process, and nothing after the split
+    depends on it."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import training
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce, vmem_attn
+
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()  # an earlier trainer kept alive for its step split
+    t0 = time.perf_counter()
+    model, tx, state = training.init_train(cfg, seed=seed, lr=1e-3, frozen_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_all = sum(p.numel() for p in model.parameters())
+    if any(p.requires_grad != name.endswith(("lora_a", "lora_b")) for name, p in model.named_parameters()):
+        raise SystemExit(f"{label}: requires_grad is not on the LoRA leaves only")
+    if model.lm_head.kernel.dtype != torch.bfloat16 or model.layers[0].attn.q.lora_a.dtype != torch.float32:
+        raise SystemExit(f"{label}: frozen_dtype did not downcast the base only")
+    n_steps = 1 + TRAIN_STEPS
+    step = training.make_train_step(model, tx, trainable=state.mask, loss_impl="auto", scan_steps=TRAIN_STEPS if scan else None)
+    if step.loss_impl != "fused":
+        raise SystemExit(f"{label}: loss_impl='auto' resolved to {step.loss_impl!r}, expected 'fused'")
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, L)).astype(np.int32)).cuda()
+    mask = torch.ones((B, L), dtype=torch.float32, device="cuda")
+    single = training.make_train_step(model, tx, trainable=state.mask, loss_impl="auto") if scan else step
+    before = frozen_fingerprint(model)
+    adapters = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    print(f"train {label}: dim {cfg.dim}, {cfg.layers} layers, {cfg.heads} heads, {cfg.kv_heads} KV heads, hd {cfg.head_dim}, ffn {cfg.ffn}, "
+          f"vocab {cfg.vocab_size}, rank {cfg.lora_rank}; {n_all / 1e9:.3f} G parameters, {n_train / 1e6:.2f} M trainable; B {B}, L {L}; "
+          f"built in {build_s:.1f} s, {(torch.cuda.memory_allocated() - base_bytes) / 1e9:.2f} GB of weights; cuts: none")
+
+    reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(single(ids, mask))]  # the warm step (kernels' first launches, cuBLAS plans)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    with GradCapture(vmem_attn, "causal_attention_vmem", keep=1) as cap_g, GradCapture(fused_ce, "linear_ce_rows", keep=1) as cap_h:
+        t0 = time.perf_counter()
+        if scan:
+            losses += step(ids.expand(TRAIN_STEPS, B, L), mask).tolist()
+        else:
+            losses += [float(step(ids, mask)) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    counts = train_counts()
+    want = {"vmem_attn_fwd": cfg.layers * n_steps, "vmem_attn_bwd": cfg.layers * n_steps, "fused_ce_fwd": n_steps, "fused_ce_bwd": n_steps}
+    print(f"train {label} main path launches: {json.dumps(counts)} (expected {json.dumps(want)})")
+    if counts != want:
+        raise SystemExit(f"train {label}: launch counts {counts}, expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"train {label}: losses {losses} are not finite and falling")
+    if frozen_fingerprint(model) != before:
+        raise SystemExit(f"train {label}: a frozen leaf changed")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p.detach(), adapters[n])]
+    if still:
+        raise SystemExit(f"train {label}: {len(still)} adapter leaves did not move, e.g. {still[0]}")
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    print(f"train {label} ({'scan_steps=%d' % TRAIN_STEPS if scan else 'single steps'}, bf16 frozen base, vmem + fused_qkv + fused loss): "
+          f"losses {[round(x, 4) for x in losses]}; warm {warm_ms:.1f} ms per optimizer step, {B * L / warm_ms * 1e3:.1f} tokens/s; "
+          f"cold first step {cold_ms:.1f} ms; peak device memory {peak_gb:.2f} GB; card={card}")
+    (q, k, v, _), dout = cap_g.calls[0]
+    (h, w, tgt), g = cap_h.calls[0]
+    captured = dict(q=q.detach().contiguous(), k=k.detach().contiguous(), v=v.detach().contiguous(), dout=dout.contiguous(),
+                    h=h.detach().contiguous(), w=w.detach(), tgt=tgt.detach().to(torch.int32).contiguous(), g=g.float().contiguous())
+    stats = dict(warm_ms=warm_ms, tokens_per_s=B * L / warm_ms * 1e3, cold_ms=cold_ms, peak_gb=peak_gb, losses=losses)
+
+    def split_step():
+        # one more step under torch.profiler; the closure keeps the trainer alive until then
+        print(f"train {label} step split: " + json.dumps(profile_train_steps(lambda: single(ids, mask), 1)))
+
+    return counts, captured, stats, split_step
+
+
+def parity_on_card(seed: int) -> None:
+    """Phase 10: 4 steps at a small float32 shape, ("vmem", "fused") on the
+    card against ("dot", "dense") on the card and on the CPU, from the same
+    initial weights. The shape is that of the JAX package's train-step parity
+    test with dim 256 instead of 128, so that the head dim is 64, one of the
+    two that kernel G is instantiated for."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm, training
+
+    cfg = llm.LLMConfig(vocab_size=1024, dim=256, layers=2, heads=4, kv_heads=2, ffn=256, max_len=128, lora_rank=4, dtype=torch.float32)
+    ids = np.random.default_rng(seed).integers(1, cfg.vocab_size, (2, 128)).astype(np.int32)
+    mask = np.ones((2, 128), np.float32)
+    init = llm.DecoderLM(cfg, device="cpu", seed=seed).state_dict()
+    curves = {}
+    reset_train_counts()
+    for attn_impl, loss_impl, device in (("vmem", "fused", "cuda"), ("dot", "dense", "cuda"), ("dot", "dense", "cpu")):
+        model, tx, state = training.init_train(dataclasses.replace(cfg, attn_impl=attn_impl), lr=1e-3, device=device)
+        model.load_state_dict(init)
+        step = training.make_train_step(model, tx, trainable=state.mask, loss_impl=loss_impl)
+        curves[(attn_impl, loss_impl, device)] = [float(step(ids, mask)) for _ in range(4)]
+    counts = train_counts()
+    if counts != {"vmem_attn_fwd": 8, "vmem_attn_bwd": 8, "fused_ce_fwd": 4, "fused_ce_bwd": 4}:
+        raise SystemExit(f"parity: launch counts {counts}")
+    got = curves[("vmem", "fused", "cuda")]
+    worst = 0.0
+    for key in (("dot", "dense", "cuda"), ("dot", "dense", "cpu")):
+        for a, b in zip(got, curves[key]):
+            worst = max(worst, abs(a - b) / abs(b))
+    print(f"parity: loss curves over 4 float32 steps: (vmem, fused) on the card {[round(x, 6) for x in got]}, (dot, dense) on the card "
+          f"{[round(x, 6) for x in curves[('dot', 'dense', 'cuda')]]}, on the CPU {[round(x, 6) for x in curves[('dot', 'dense', 'cpu')]]}; "
+          f"max relative difference {worst:.3e} (tol {TOL_PARITY})")
+    if worst > TOL_PARITY or not got[-1] < got[0]:
+        raise SystemExit(f"parity: loss curves differ by {worst} relative")
+
+
+def attn_grads(fn, q, k, v, dout, scale):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, scale)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def check_kernel_g(q, k, v, dout, label: str) -> tuple[float, float]:
+    """Kernel G forward and backward against its plain version (autograd), in
+    the tensors' dtype and upcast to float32. Returns the working-dtype max
+    |err| of the forward and of the gradients."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import vmem_attn
+
+    scale = float(q.shape[-1] ** -0.5)
+    out = {}
+    casts = [("f32", lambda t: t.float(), TOL_G_F32, TOL_G_GRAD_F32)]
+    if q.dtype == torch.bfloat16:
+        casts.insert(0, ("bf16", lambda t: t, TOL_G_BF16, TOL_G_GRAD_BF16))
+    for name, cast, tol, gtol in casts:
+        args = [cast(t) for t in (q, k, v, dout)]
+        got = attn_grads(vmem_attn.causal_attention_vmem, *args, scale)
+        torch.cuda.synchronize()
+        want = attn_grads(vmem_attn.causal_attention_vmem_plain, *args, scale)
+        err = float((got[0].float() - want[0].float()).abs().max())
+        if not torch.isfinite(got[0]).all() or err > tol:
+            raise SystemExit(f"kernel G forward ({label}, {name}): max |err| {err} beyond {tol}")
+        gerr, grel = 0.0, 0.0
+        for what, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            d = float((a.float() - b.float()).abs().max())
+            ref = float(b.float().abs().max())
+            if a.dtype != b.dtype or not torch.isfinite(a).all() or d > gtol * ref:
+                raise SystemExit(f"kernel G backward ({label}, {name}): {what} differs by {d} with largest element {ref} (tol {gtol} relative)")
+            gerr, grel = max(gerr, d), max(grel, d / ref)
+        out[name] = (err, gerr, grel)
+    first = next(iter(out))
+    print(f"check: vmem_attn {label} q {tuple(q.shape)} kv heads {k.shape[2]} {str(q.dtype)[6:]}: " + "; ".join(
+        f"{name} forward max |err| {e:.3e}, gradients max |err| {ge:.3e} ({gr:.3e} of the largest element)" for name, (e, ge, gr) in out.items())
+        + f" (tols {TOL_G_BF16} / {TOL_G_F32} absolute forward, {TOL_G_GRAD_BF16} / {TOL_G_GRAD_F32} relative gradients)")
+    return out[first][0], out[first][1]
+
+
+def ce_grad(fn, h, w, tgt, g):
+    h = h.detach().clone().requires_grad_(True)
+    nll = fn(h, w, tgt)
+    nll.backward(g)
+    return nll.detach(), h.grad
+
+
+def check_kernel_h(h, w, tgt, g, label: str, tol: float, gtol: float) -> tuple[float, float]:
+    """Kernel H forward and backward against its plain version (autograd) on
+    the tensors as given. Returns max |err| of the rows and of dh."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce
+
+    got, got_dh = ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    torch.cuda.synchronize()
+    want, want_dh = ce_grad(fused_ce.linear_ce_rows_plain, h, w, tgt, g)
+    diff = (got - want).abs()
+    if not torch.isfinite(got).all() or bool((diff > tol + tol * want.abs()).any()):
+        raise SystemExit(f"kernel H forward ({label}): max |err| {float(diff.max())} beyond {tol}")
+    d = float((got_dh.float() - want_dh.float()).abs().max())
+    ref = float(want_dh.float().abs().max())
+    if got_dh.dtype != h.dtype or not torch.isfinite(got_dh).all() or d > gtol * ref:
+        raise SystemExit(f"kernel H backward ({label}): dh differs by {d} with largest element {ref} (tol {gtol} relative)")
+    print(f"check: fused_ce {label} h {tuple(h.shape)} w {tuple(w.shape)} {str(h.dtype)[6:]}: rows max |err| {float(diff.max()):.3e} (tol {tol}), "
+          f"dh max |err| {d:.3e} = {d / ref:.3e} of the largest element (tol {gtol})")
+    return float(diff.max()), d
+
+
+def edge_shape_checks(seed: int) -> None:
+    """Kernels G and H against their plain versions on edge shapes: L 128,
+    one KV head, N that fills no tile, a target in the last vocabulary
+    column, logits scaled x12."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce
+
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()  # noqa: E731
+    for B, L, H, KV, hd, dtype in ((3, 128, 6, 6, 128, torch.float32), (2, 128, 8, 1, 64, torch.bfloat16), (1, 512, 14, 2, 64, torch.float32)):
+        check_kernel_g(mk(B, L, H, hd).to(dtype), mk(B, L, KV, hd).to(dtype), mk(B, L, KV, hd).to(dtype), mk(B, L, H, hd).to(dtype),
+                       f"edge B {B} L {L} H {H} KV {KV} hd {hd}")
+    for N, D, V, spread in ((300, 256, 1024, 1.0), (515, 384, 9216, 1.0), (8, 128, 512, 1.0), (300, 256, 1024, 12.0)):
+        h = mk(N, D) * 0.3 * spread
+        w = mk(D, V) * 0.05 * spread
+        tgt = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).cuda()
+        tgt[0], tgt[-1] = V - 1, 0
+        g = (torch.from_numpy(rng.random(N)).cuda() > 0.3).float()
+        g = g / g.sum()
+        if spread == 1.0:
+            check_kernel_h(h, w, tgt, g, f"edge N {N} D {D} V {V}", TOL_H_F32, TOL_H_GRAD_F32)
+        else:
+            got = fused_ce.linear_ce_rows(h, w, tgt)
+            want = fused_ce.linear_ce_rows_plain(h, w, tgt)
+            diff = (got - want).abs()
+            if not torch.isfinite(got).all() or bool((diff > TOL_H_EXTREME + TOL_H_EXTREME * want.abs()).any()):
+                raise SystemExit(f"kernel H forward (logits x12): max |err| {float(diff.max())} beyond {TOL_H_EXTREME}")
+            print(f"check: fused_ce logits x12 (max |logit| {float((h @ w).abs().max()):.0f}): rows max |err| {float(diff.max()):.3e} (tol {TOL_H_EXTREME})")
+
+
+def h_peak_allocation(h, w, tgt, g) -> int:
+    """Peak of newly allocated device memory during kernel H's forward and
+    backward: it must stay under N * V * 2 bytes, the size of the bfloat16
+    logits that the fused loss never makes."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = h.shape[0] * w.shape[1] * 2
+    print(f"check: fused_ce forward + backward at N {h.shape[0]}, V {w.shape[1]} newly allocated at most {peak / 1e6:.1f} MB "
+          f"(an [N, V] bfloat16 tensor is {limit / 1e6:.1f} MB)")
+    if peak >= limit:
+        raise SystemExit(f"kernel H allocated {peak} bytes, an [N, V] tensor's worth")
+    return peak
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn(): ``reps`` calls captured into one CUDA graph
+    (after three eager calls on a side stream), the graph replayed between two
+    CUDA events. A replay has no host path between its kernels, so this reads
+    device time for calls of any length, eager PyTorch code included."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fwd_bwd_ms(make_call, sets, reps: int) -> dict:
+    """Device ms of a forward alone and of the backward (forward + backward
+    less the forward), by graph_ms, rotating over ``sets`` of input tensors so
+    that L2 is cold. ``make_call(inputs, grad)`` returns (output, gradient to
+    send back, inputs that take a gradient). (Kernel durations summed under
+    torch.profiler, as device_ms does for kernel F, lost records in this
+    process once the trainers had run; a loop between events reads the host
+    for the library attention, whose kernels take about 0.02 ms.)"""
+    import torch
+
+    turn = [0]
+
+    def forward_only():
+        turn[0] += 1
+        with torch.no_grad():
+            make_call(sets[turn[0] % len(sets)], False)
+
+    def forward_backward():
+        turn[0] += 1
+        out, grad, leaves = make_call(sets[turn[0] % len(sets)], True)
+        torch.autograd.grad(out, leaves, grad)
+
+    fwd = graph_ms(forward_only, reps)
+    both = graph_ms(forward_backward, reps)
+    return dict(fwd=fwd, bwd=both - fwd)
+
+
+def kernel_time_rows(ms, plain, lib, work, peak) -> dict:
+    """Rows {"fwd": ..., "bwd": ...} of a kernel's times beside its bound:
+    the larger of bytes over the memory rate and operations over ``peak``."""
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = dict(ms=ms[name], plain_ms=plain[name], library_ms=lib[name], bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def time_kernel_g(q, k, v, dout) -> dict:
+    """Kernel G, its plain version and scaled_dot_product_attention
+    (is_causal, enable_gqa), forward and backward, on a captured layer's
+    tensors, L2 cold (enough copies to exceed the 50 MB cache)."""
+    import torch
+    import torch.nn.functional as F
+
+    from prosody_control_french_tts_tpu_torch.ops import vmem_attn
+
+    B, L, H, hd = q.shape
+    KV = k.shape[2]
+    item = q.element_size()
+    scale = float(hd**-0.5)
+    one = (2 * q.numel() + 2 * k.numel()) * item
+    sets = [tuple(t.clone() for t in (q, k, v, dout)) for _ in range(max(2, int(120e6 // one) + 1))]
+
+    def with_fn(fn):
+        def make_call(inputs, grad):
+            qq, kk, vv, dd = inputs
+            if grad:
+                qq, kk, vv = (t.detach().requires_grad_(True) for t in (qq, kk, vv))
+            return fn(qq, kk, vv), dd, (qq, kk, vv)
+
+        return make_call
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    ms = fwd_bwd_ms(with_fn(lambda a, b, c: vmem_attn.causal_attention_vmem(a, b, c, scale)), sets, reps=12)
+    plain = fwd_bwd_ms(with_fn(lambda a, b, c: vmem_attn.causal_attention_vmem_plain(a, b, c, scale)), sets, reps=4)
+    lib = fwd_bwd_ms(with_fn(sdpa), sets, reps=12)
+    pairs = B * H * L * (L + 1) // 2  # (query, key) pairs at or below the diagonal
+    stat = B * H * L * 4
+    work = {"fwd": (2 * 2 * hd * pairs, (2 * q.numel() + 2 * k.numel()) * item + stat),
+            "bwd": (5 * 2 * hd * pairs, (3 * q.numel() + 4 * k.numel()) * item + stat)}
+    out = kernel_time_rows(ms, plain, lib, work, PEAK_FLOPS["bf16" if item == 2 else "f32"])
+    out["shape"] = dict(B=B, L=L, H=H, kv_heads=KV, hd=hd, dtype=str(q.dtype)[6:])
+    return out
+
+
+def time_kernel_h(h, w, tgt, g) -> dict:
+    """Kernel H, its plain version and F.cross_entropy of the dense logits,
+    forward and backward (dh only), on the captured final hidden state. W is
+    far larger than L2, so every call finds it cold."""
+    import torch
+    import torch.nn.functional as F
+
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce
+
+    N, D = h.shape
+    V = w.shape[1]
+    item = h.element_size()
+    sets = [(h, w, tgt, g), (h.clone(), w, tgt, g)]
+
+    def with_fn(fn):
+        def make_call(inputs, grad):
+            hh, ww, tt, gg = inputs
+            if grad:
+                hh = hh.detach().requires_grad_(True)
+            return fn(hh, ww, tt), gg, (hh,)
+
+        return make_call
+
+    t64 = tgt.long()
+    ms = fwd_bwd_ms(with_fn(fused_ce.linear_ce_rows), sets, reps=2)
+    plain = fwd_bwd_ms(with_fn(fused_ce.linear_ce_rows_plain), sets, reps=2)
+    lib = fwd_bwd_ms(with_fn(lambda hh, ww, tt: F.cross_entropy(hh @ ww, t64, reduction="none").float()), sets, reps=2)
+    work = {"fwd": (2 * N * D * V, (N * D + D * V) * item + N * 12), "bwd": (4 * N * D * V, (2 * N * D + D * V) * item + N * 12)}
+    out = kernel_time_rows(ms, plain, lib, work, PEAK_FLOPS["bf16" if item == 2 else "f32"])
+    out["shape"] = dict(N=N, D=D, V=V, dtype=str(h.dtype)[6:])
+    return out
+
+
+def train_phases(args, card: str) -> list:
+    """Phases 9-11 of the module docstring. Returns the rows of G forward, G
+    backward, H forward and H backward for the ``kernels`` line."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 9. trainers ----------------------------------------------------------
+    free()  # the serving trees are gone: return their blocks before the 7B trainer
+    cfg7 = dataclasses.replace(llm.LLMConfig.qwen25_7b(), attn_impl="vmem", fused_qkv=True, lora_rank=8)
+    counts7, cap7, stats7, split7 = run_trainer("7B", cfg7, 4, 512, args.seed, card, scan=False)
+    free()
+    bcfg = llm.LLMConfig(vocab_size=32768, dim=896, layers=12, heads=14, kv_heads=2, ffn=2432, max_len=512, lora_rank=8,
+                         attn_impl="vmem", fused_qkv=True)
+    countsb, capb, statsb, splitb = run_trainer("bench geometry", bcfg, 8, 512, args.seed + 2, card, scan=True)
+    free()
+
+    # -- 10. parity on the card -------------------------------------------------
+    parity_on_card(args.seed)
+
+    # -- 11. kernels against their plain versions, and their times ---------------
+    errs = {}
+    for label, cap in (("7B geometry", cap7), ("bench geometry", capb)):
+        g_err = check_kernel_g(cap["q"], cap["k"], cap["v"], cap["dout"], label)
+        h_err = check_kernel_h(cap["h"], cap["w"], cap["tgt"], cap["g"], label + " bf16", TOL_H_WIDE, TOL_H_GRAD_BF16)
+        check_kernel_h(cap["h"].float(), cap["w"].float(), cap["tgt"], cap["g"], label + " upcast to float32", TOL_H_WIDE, TOL_H_GRAD_WIDE)
+        free()
+        errs[label] = (g_err, h_err)
+    edge_shape_checks(args.seed)
+    h_peak_allocation(cap7["h"], cap7["w"], cap7["tgt"], cap7["g"])
+    times = {}
+    for label, cap in (("7B geometry", cap7), ("bench geometry", capb)):
+        times[label] = (time_kernel_g(cap["q"], cap["k"], cap["v"], cap["dout"]), time_kernel_h(cap["h"], cap["w"], cap["tgt"], cap["g"]))
+        free()
+
+    rows = []
+    for spec, which, direction in ((KERNEL_G_FWD, 0, "fwd"), (KERNEL_G_BWD, 0, "bwd"), (KERNEL_H_FWD, 1, "fwd"), (KERNEL_H_BWD, 1, "bwd")):
+        i = 0 if direction == "fwd" else 1
+        t7, tb = times["7B geometry"][which], times["bench geometry"][which]
+        rows.append(dict(spec, launches=counts7[spec["name"]], max_abs_err=errs["7B geometry"][which][i],
+                         **{k: t7[direction][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, check="pass", shape=t7["shape"],
+                         bench_geometry=dict(tb[direction], shape=tb["shape"], launches=countsb[spec["name"]], max_abs_err=errs["bench geometry"][which][i])))
+        for label, t, n in (("7B geometry", t7, counts7[spec["name"]]), ("bench geometry", tb, countsb[spec["name"]])):
+            d = t[direction]
+            print(f"kernel {spec['name']} ({label} {json.dumps(t['shape'])}): ms={d['ms']:.4f} launches={n} bound_ms={d['bound_ms']:.5f} "
+                  f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f} card={card}")
+    split7()
+    splitb()
+    del split7, splitb
+    free()
+    print(f"train summary: 7B {stats7['warm_ms']:.1f} ms per step, {stats7['tokens_per_s']:.1f} tokens/s, peak {stats7['peak_gb']:.2f} GB; "
+          f"bench geometry {statsb['warm_ms']:.1f} ms per step, {statsb['tokens_per_s']:.1f} tokens/s, peak {statsb['peak_gb']:.2f} GB; card={card}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -706,6 +1288,7 @@ def main() -> int:
               f"max_abs_err={err:.3e} card={card}")
 
     rows_out.append(llm_phases(args, card))
+    rows_out.extend(train_phases(args, card))
 
     print(f"measure step (warm): wall {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s; card={card}")
     print("phases warm: " + json.dumps({k2: round(v, 4) for k2, v in sorted(warm_phases.items())}))

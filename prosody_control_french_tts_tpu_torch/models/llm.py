@@ -10,9 +10,11 @@ reference's checkpoints; ``tiny`` runs in tests).
 Two layouts, as in the JAX package:
 
 - the **training layout**, :class:`DecoderLM`: separate q/k/v/o/gate/up/down
-  ``LoRALinear`` projections with float32 (or quantized) base kernels stored
-  ``[in, out]``, KV caches ``[B, S, kv_heads, hd]``; forward only in this
-  module (the training step is a later slice);
+  ``LoRALinear`` projections with float32, bfloat16 (frozen) or quantized
+  base kernels stored ``[in, out]``, KV caches ``[B, S, kv_heads, hd]``; the
+  training step over it is ``models.training``, its attention at short
+  sequence lengths ``ops.vmem_attn`` and its loss ``ops.fused_ce`` (hand-
+  written CUDA kernels on the card, forward and backward);
 - the **serving layout**, :func:`fuse_decode_params`: LoRA folded into the
   base, q|k|v and gate|up concatenated, everything bfloat16 (optionally an
   int8 weight stream, :func:`quantize_fused_decode_params`), KV caches packed
@@ -25,13 +27,15 @@ updated in place, and ``pos`` is a host integer.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
-from ..ops import decode_attn
+from ..ops import decode_attn, fused_ce, vmem_attn
 from ..ops.kernels import dsp_precision, resolve_device
 from .lora import LoRALinear, lecun_normal_
 
@@ -53,17 +57,33 @@ class LLMConfig:
     # | "nf4" (4-bit blockwise, the checkpoint/train format) | "int8b"
     # (blockwise int8 — NF4 recoded for serving, quant.recode_params_nf4_serving)
     quant: str | None = None
-    # Training-path knobs of the JAX package, kept so configs carry across.
-    # Only the defaults are implemented until the training slice.
+    # training-path attention: "dot" (mask + softmax with the [B, H, L, L]
+    # score tensor in device memory) | "vmem" (ops.vmem_attn: score rows stay
+    # on chip, forward and backward). "vmem" applies only to the pure causal
+    # no-cache shape with L a multiple of 128 up to vmem_attn.MAX_L; decode and
+    # padded-mask calls use "dot".
     attn_impl: str = "dot"
+    # q|k|v and gate|up as ONE matmul each at apply time (LoRA adapters ride
+    # along as [A_q|A_k|A_v] and a block-diagonal B): fewer launches, x read
+    # once. The state_dict is unchanged: the concat happens in the forward.
     fused_qkv: bool = False
+    # recompute each decoder layer in the backward pass instead of storing
+    # its activations (no-cache calls only)
     remat: bool = False
+    # with remat=True: None saves nothing (full recompute); "dots" saves the
+    # matrix products' outputs and recomputes the elementwise work
     remat_policy: str | None = None
 
     def __post_init__(self):
-        for name, default in (("attn_impl", "dot"), ("fused_qkv", False), ("remat", False), ("remat_policy", None)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(f"LLMConfig.{name}={getattr(self, name)!r}: only {default!r} is ported")
+        if self.attn_impl == "flash":
+            raise NotImplementedError(
+                "LLMConfig.attn_impl='flash' is the upstream Pallas TPU flash-attention op, not one of this "
+                "repository's kernels, and has no port: use 'vmem' or 'dot'"
+            )
+        if self.attn_impl not in ("dot", "vmem"):
+            raise ValueError(f"LLMConfig.attn_impl={self.attn_impl!r}: expected 'dot' or 'vmem'")
+        if self.remat_policy not in (None, "dots"):
+            raise ValueError(f"LLMConfig.remat_policy={self.remat_policy!r}: expected None or 'dots'")
 
     @classmethod
     def tiny(cls, vocab_size: int = 512) -> "LLMConfig":
@@ -144,6 +164,27 @@ class RMSNorm(nn.Module):
         return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.scale.to(x.dtype)
 
 
+def _fused_lora_matmul(x, parts, alpha: float):
+    """One matmul over N concatenated ``LoRALinear`` parameter surfaces.
+
+    ``parts`` are ``(kernel, bias, lora_a, lora_b)`` tuples from
+    ``LoRALinear.surface()`` (all with bias or none, all with adapters or
+    none). Computes the per-projection outputs side by side:
+    ``x @ [W1|…|WN] + [b1|…|bN] + (α/r)·(x @ [A1|…|AN]) @ blockdiag(B)``.
+    Each output column's contraction is unchanged (the off-block zeros of
+    blockdiag(B) add exact 0.0 terms), so results match the per-projection
+    matmuls."""
+    y = x @ torch.cat([p[0] for p in parts], dim=1)
+    if parts[0][1] is not None:
+        y = y + torch.cat([p[1] for p in parts]).to(y.dtype)
+    if parts[0][2] is not None:
+        rank = parts[0][2].shape[1]
+        acat = torch.cat([p[2] for p in parts], dim=1).to(x.dtype)
+        bblk = torch.block_diag(*[p[3].to(x.dtype) for p in parts])
+        y = y + (alpha / rank) * ((x @ acat) @ bblk)
+    return y
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None, generator=None):
         super().__init__()
@@ -160,9 +201,15 @@ class Attention(nn.Module):
         c = self.cfg
         hd = c.head_dim
         B, L = x.shape[0], x.shape[1]
-        q = self.q(x).reshape(B, L, c.heads, hd)
-        k = self.k(x).reshape(B, L, c.kv_heads, hd)
-        v = self.v(x).reshape(B, L, c.kv_heads, hd)
+        if c.fused_qkv:
+            nq, nkv = c.heads * hd, c.kv_heads * hd
+            qkv = _fused_lora_matmul(x, [self.q.surface(), self.k.surface(), self.v.surface()], c.lora_alpha)
+            q, k, v = qkv[..., :nq], qkv[..., nq : nq + nkv], qkv[..., nq + nkv :]
+        else:
+            q, k, v = self.q(x), self.k(x), self.v(x)
+        q = q.reshape(B, L, c.heads, hd)
+        k = k.reshape(B, L, c.kv_heads, hd)
+        v = v.reshape(B, L, c.kv_heads, hd)
         q = rope(q, positions, c.rope_theta)
         k = rope(k, positions, c.rope_theta)
         new_cache = None
@@ -172,7 +219,13 @@ class Attention(nn.Module):
             _write_cache(cv, v, cache_pos)
             k, v = ck, cv
             new_cache = (ck, cv)
-        return self.o(_masked_attention(q, k, v, mask, c.kv_heads)), new_cache
+        if mask is None:
+            # pure-causal training shape, short L (DecoderLM.forward decides):
+            # ops.vmem_attn, no [B, H, L, L] tensor forward or backward
+            out = vmem_attn.causal_attention_vmem(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, c.heads * hd)
+        else:
+            out = _masked_attention(q, k, v, mask, c.kv_heads)
+        return self.o(out), new_cache
 
 
 class MLP(nn.Module):
@@ -182,9 +235,16 @@ class MLP(nn.Module):
         self.gate = LoRALinear(cfg.dim, cfg.ffn, **kw)
         self.up = LoRALinear(cfg.dim, cfg.ffn, **kw)
         self.down = LoRALinear(cfg.ffn, cfg.dim, **kw)
+        self.cfg = cfg
 
     def forward(self, x):
-        return self.down(nn.functional.silu(self.gate(x)) * self.up(x))
+        c = self.cfg
+        if c.fused_qkv:
+            gu = _fused_lora_matmul(x, [self.gate.surface(), self.up.surface()], c.lora_alpha)
+            gate, up = gu[..., : c.ffn], gu[..., c.ffn :]
+        else:
+            gate, up = self.gate(x), self.up(x)
+        return self.down(nn.functional.silu(gate) * up)
 
 
 class DecoderLayer(nn.Module):
@@ -215,28 +275,61 @@ class _Embed(nn.Module):
 
 
 class _Head(nn.Module):
-    """Untied LM head kernel [D, V] float32; logits are computed in float32."""
+    """Untied LM head kernel [D, V], float32 (bfloat16 when frozen and
+    downcast); logits are computed in float32."""
 
     def __init__(self, dim: int, vocab: int, device=None, generator=None):
         super().__init__()
         self.kernel = nn.Parameter(lecun_normal_(torch.empty((dim, vocab), dtype=torch.float32, device=device), dim, generator))
 
 
+_DOT_OPS = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str | None):
+    """``context_fn`` of a checkpointed layer: nothing saved (None), or the
+    matrix products' outputs saved and the rest recomputed ("dots")."""
+    if policy == "dots":
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.noop_context_fn
+
+
 class DecoderLM(nn.Module):
     """The training-layout model. Parameters are made on ``device`` from
     ``seed`` (truncated-normal kernels of variance 1/fan_in, N(0, 1/r)
     ``lora_a``, zero ``lora_b`` and biases, unit norm scales); load a carried
-    checkpoint with ``load_state_dict(convert.llm_params_from_jax(...))``."""
+    checkpoint with ``load_state_dict(convert.llm_params_from_jax(...))``.
+    ``on_built(module)`` is called on each top-level part (the embedding, each
+    decoder layer, the final norm, the head) as soon as it is made:
+    ``models.training.init_train`` freezes and downcasts the base there, so a
+    7B float32 tree never exists whole."""
 
-    def __init__(self, cfg: LLMConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: LLMConfig, device="cuda", seed: int = 0, on_built=None):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        built = on_built or (lambda m: None)
+
+        def make(module):
+            built(module)
+            return module
+
         self.cfg = cfg
-        self.embed = _Embed(cfg.vocab_size, cfg.dim, dev, gen)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dev, gen) for _ in range(cfg.layers))
-        self.ln_f = RMSNorm(cfg.dim, device=dev)
-        self.lm_head = _Head(cfg.dim, cfg.vocab_size, dev, gen)
+        self.embed = make(_Embed(cfg.vocab_size, cfg.dim, dev, gen))
+        self.layers = nn.ModuleList(make(DecoderLayer(cfg, dev, gen)) for _ in range(cfg.layers))
+        self.ln_f = make(RMSNorm(cfg.dim, device=dev))
+        self.lm_head = make(_Head(cfg.dim, cfg.vocab_size, dev, gen))
 
     def forward(self, ids, positions=None, kv_caches=None, cache_pos=None, attn_mask=None, return_hidden=False):
         """Training: ids [B, L] → logits [B, L, V] float32 (causal mask, and
@@ -251,23 +344,36 @@ class DecoderLM(nn.Module):
             positions = torch.arange(L, device=dev).expand(B, L)
         x = self.embed.embedding[ids].to(c.dtype)
         if kv_caches is None:
-            mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None, :, :]
-            if attn_mask is not None:
-                mask = mask & attn_mask.bool()[:, None, :]
+            # "vmem" keeps whole score rows on chip: bounded to MAX_L, and to
+            # the 128-multiples the TPU kernel takes; other shapes and padded
+            # masks take the dot path
+            kernel_ok = c.attn_impl == "vmem" and L % 128 == 0 and L <= vmem_attn.MAX_L
+            if kernel_ok and attn_mask is None:
+                mask = None  # Attention routes mask=None to ops.vmem_attn
+            else:
+                mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None, :, :]
+                if attn_mask is not None:
+                    mask = mask & attn_mask.bool()[:, None, :]
         else:
             kl = kv_caches[0][0].shape[1]
             mask = torch.arange(kl, device=dev)[None, None, :] <= positions[:, :, None]
         new_caches = []
+        remat = c.remat and kv_caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             cache = None
             if kv_caches is not None:
                 cache = (kv_caches[i][0], kv_caches[i][1], cache_pos)
-            x, nc = layer(x, positions, mask, cache)
+            if remat:
+                x, nc = _ckpt.checkpoint(layer, x, positions, mask, None, use_reentrant=False, context_fn=_remat_context(c.remat_policy))
+            else:
+                x, nc = layer(x, positions, mask, cache)
             new_caches.append(nc)
         x = self.ln_f(x)
         if return_hidden:
+            # fused-CE training path: the caller feeds the final hidden state
+            # and the raw lm_head kernel to ops.fused_ce
             return x
-        logits = x.float() @ self.lm_head.kernel
+        logits = x.float() @ self.lm_head.kernel.float()
         return (logits, new_caches) if kv_caches is not None else logits
 
 
@@ -287,6 +393,23 @@ def causal_lm_loss(logits, ids, loss_mask):
     ll = picked - torch.logsumexp(lg, dim=-1)
     m = loss_mask[:, 1:].to(ll.dtype)
     return -(ll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def causal_lm_loss_fused(hidden, head_w, ids, loss_mask):
+    """:func:`causal_lm_loss` computed by the fused linear cross-entropy
+    (``ops.fused_ce``): same gather − logsumexp formula, but the [B, L, V]
+    logits never exist in device memory. The head product runs in
+    ``hidden.dtype`` with float32 sums, where the dense path computes
+    float32 logits, so in bfloat16 the two agree only to about 1e-3
+    relative. ``hidden`` is the post-``ln_f`` state from
+    ``model(ids, return_hidden=True)``; ``head_w`` the raw ``lm_head`` kernel
+    [D, V], frozen (no dW is computed)."""
+    B, L, D = hidden.shape
+    h = hidden[:, :-1].reshape(B * (L - 1), D)
+    tgt = ids[:, 1:].reshape(-1)
+    m = loss_mask[:, 1:].reshape(-1).to(torch.float32)
+    nll = fused_ce.linear_ce_rows(h, head_w.to(hidden.dtype), tgt)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 
 def require_on(t: torch.Tensor, dev: torch.device, what: str) -> None:

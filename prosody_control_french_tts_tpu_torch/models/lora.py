@@ -4,8 +4,9 @@ The reference trains Qwen2.5-7B with PEFT LoRA r=8 α=16 on the
 q/k/v/o/gate/up/down projections. ``LoRALinear`` computes
 ``x·W + b + (α/r)·(x·A)·B`` with A ~ N(0, 1/r), B = 0. The base kernel is
 stored ``[in, out]`` (so a checkpoint of the JAX package copies across
-without a transpose) as float32, or weight-only quantized
-(``models.quant``); bias and adapters are always float32.
+without a transpose) as float32, as bfloat16 once a training run has
+frozen and downcast it (``models.training.init_train(frozen_dtype=...)``), or
+weight-only quantized (``models.quant``); adapters are always float32.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from .quant import NF4_BLOCK, dequant_int8, dequant_nf4, matmul_int8_block
+from .quant import NF4_BLOCK, dequant_int8, dequant_int8_block, dequant_nf4, matmul_int8_block
 
 # standard deviation of a standard normal truncated to (-2, 2)
 _TRUNC_STD = 0.87962566103423978
@@ -76,6 +77,22 @@ class LoRALinear(nn.Module):
             self.lora_b = nn.Parameter(torch.zeros((rank, features), dtype=torch.float32, device=device))
         else:
             self.lora_a = self.lora_b = None
+
+    def surface(self):
+        """The parameter surface ``(kernel, bias, lora_a, lora_b)`` for callers
+        that fuse several projections into one matmul (``models.llm``
+        ``fused_qkv``): the base kernel in the compute dtype, dequantized
+        where quantized; bias and adapters as stored (None where absent)."""
+        dt = self.dtype
+        if self.quant == "int8":
+            kernel = dequant_int8(self.kernel_q, self.kernel_scale, dt)
+        elif self.quant == "int8b":
+            kernel = dequant_int8_block(self.kernel_q, self.kernel_scale, dt)
+        elif self.quant == "nf4":
+            kernel = dequant_nf4(self.kernel_q, self.kernel_scale, dt)
+        else:
+            kernel = self.kernel.to(dt)  # no copy when already stored in dt
+        return kernel, self.bias, self.lora_a, self.lora_b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

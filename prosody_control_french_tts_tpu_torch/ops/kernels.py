@@ -10,7 +10,8 @@ edited source is rebuilt. Each source compiles to its own object in
 parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
-``ops.viterbi`` and ``ops.decode_attn`` take their plain PyTorch versions only for tensors on
+``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn`` and ``ops.fused_ce``
+take their plain PyTorch versions only for tensors on
 the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
@@ -28,13 +29,14 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
-SOURCES = ("pitch_candidates.cu", "viterbi.cu", "decode_attn.cu")
+SOURCES = ("pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu")
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # --fmad=false: torch rounds every multiply and add on its own; a fused
 # multiply-add in the kernels would round differently from the plain
-# versions the kernels are held against. (decode_attn.cu, held to a tolerance,
-# asks for its fused multiply-adds explicitly with fmaf.)
+# versions the kernels are held against. (decode_attn.cu, vmem_attn.cu and
+# fused_ce.cu, held to a tolerance, ask for their fused multiply-adds
+# explicitly with fmaf.)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -52,6 +54,14 @@ _SIGNATURES = {
     "viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP),
     # q, kc, vc, out, scores, B, S, kv_heads, group, hd, pos, scale, dtype, stream
     "decode_attn_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I, _VP),
+    # q, k, v, o, lse, B, L, H, KVH, hd, scale, dtype, stream
+    "vmem_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP),
+    # q, k, v, do, lse, delta, dq, dk, dv, B, L, H, KVH, hd, scale, dtype, stream
+    "vmem_attn_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP),
+    # h, w, tgt, nll, lse, partials, N, D, V, splits, tiles_per_split, dtype, stream
+    "fused_ce_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
+    # h, w, tgt, lse, g, coef, dh, N, D, V, chunk, dtype, stream
+    "fused_ce_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
 }
 
 

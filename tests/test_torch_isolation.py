@@ -24,7 +24,9 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert len(mods) >= 22
+    assert len(mods) >= 25
+    for name in ("ops.vmem_attn", "ops.fused_ce", "models.training"):
+        assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -121,8 +123,13 @@ def test_llm_entry_points_default_to_cuda():
 def test_wrappers_refuse_other_devices():
     """A wrapper takes its plain version only for CPU tensors; a tensor
     elsewhere goes to the kernel or raises."""
-    from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, viterbi
+    from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, fused_ce, viterbi, vmem_attn
 
+    q4 = torch.empty((1, 128, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        vmem_attn.causal_attention_vmem(q4, q4[:, :, :2], q4[:, :, :2], 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_ce.linear_ce_rows(torch.empty((8, 128), device="meta"), torch.empty((128, 512), device="meta"), torch.empty((8,), dtype=torch.int32, device="meta"))
     meta = torch.empty((4, 297), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         candidates.topk_parabolic(meta, 14, 72, 295, 0.45)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, viterbi
+from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, fused_ce, viterbi, vmem_attn
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
 
@@ -195,3 +195,199 @@ def test_wrappers_count_launches_and_check_arguments(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in random_viterbi_inputs(0, K=33)]
     with pytest.raises(ValueError):
         viterbi.viterbi_path(*args, 0.1, 0.2)
+
+
+# ---------------------------------------------------------------------------
+# kernels G (causal attention) and H (fused linear cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def vmem_attn_inputs(B, L, H, KV, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    return mk(B, L, H, hd), mk(B, L, KV, hd), mk(B, L, KV, hd), mk(B, L, H, hd)
+
+
+def _attn_grads(fn, q, k, v, dout, scale):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, scale)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+VMEM_GEOMS = [
+    (2, 256, 4, 2, 64),  # the CPU tests' shape
+    (1, 512, 14, 2, 64),  # the bench geometry's heads, group 7, longest L
+    (1, 512, 28, 4, 128),  # the 7B geometry's heads
+    (3, 128, 6, 6, 128),  # group 1, shortest L of the model's dispatch
+    (2, 96, 8, 1, 64),  # one KV head, L a multiple of 32 only
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", VMEM_GEOMS)
+def test_vmem_attn_kernel_matches_plain_float32(cuda, geom):
+    """On the card, float32: forward within 2e-5, dq/dk/dv within 1e-5 of the
+    largest element of the plain version's gradient (autograd)."""
+    B, L, H, KV, hd = geom
+    q, k, v, dout = vmem_attn_inputs(B, L, H, KV, hd, torch.float32, cuda)
+    scale = hd**-0.5
+    got = _attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, scale)
+    torch.cuda.synchronize()
+    want = _attn_grads(vmem_attn.causal_attention_vmem_plain, q, k, v, dout, scale)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", VMEM_GEOMS[:3])
+def test_vmem_attn_kernel_matches_plain_bfloat16(cuda, geom):
+    """On the card, bfloat16: forward within 5e-2 (one rounding of an output
+    of magnitude up to ~4 is 1.6e-2); gradients within 3e-2 of the largest
+    element: the kernel rounds ds and p to bfloat16 before its products as the
+    TPU kernel does, autograd of the plain version rounds only p in the
+    forward and every intermediate result instead."""
+    B, L, H, KV, hd = geom
+    q, k, v, dout = vmem_attn_inputs(B, L, H, KV, hd, torch.bfloat16, cuda, seed=1)
+    scale = hd**-0.5
+    got = _attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, scale)
+    torch.cuda.synchronize()
+    want = _attn_grads(vmem_attn.causal_attention_vmem_plain, q, k, v, dout, scale)
+    assert got[0].dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0, atol=5e-2)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= 3e-2 * float(w.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_vmem_attn_kernel_is_causal_and_counts(cuda):
+    """Perturbing the last key/value row moves only the last query row, bit
+    for bit; each forward and each backward adds one to its own count; what
+    the kernel does not take raises and counts nothing."""
+    q, k, v, dout = vmem_attn_inputs(2, 128, 4, 2, 64, torch.float32, cuda, seed=5)
+    n_f, n_b = vmem_attn.launches, vmem_attn.launches_bwd
+    out0 = vmem_attn.causal_attention_vmem(q, k, v, 0.125)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, -1] += 3.0
+    v2[:, -1] += 3.0
+    out1 = vmem_attn.causal_attention_vmem(q, k2, v2, 0.125)
+    assert torch.equal(out0[:, :-1], out1[:, :-1])
+    assert float((out0[:, -1] - out1[:, -1]).abs().max()) > 1e-3
+    assert (vmem_attn.launches, vmem_attn.launches_bwd) == (n_f + 2, n_b)
+    _attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, 0.125)
+    assert (vmem_attn.launches, vmem_attn.launches_bwd) == (n_f + 3, n_b + 1)
+    with pytest.raises(TypeError):
+        vmem_attn.causal_attention_vmem(q.half(), k.half(), v.half(), 0.125)
+    with pytest.raises(TypeError):
+        vmem_attn.causal_attention_vmem(q, k.bfloat16(), v, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        vmem_attn.causal_attention_vmem(q[..., :32], k[..., :32], v[..., :32], 0.125)
+    with pytest.raises(ValueError, match="multiple"):
+        vmem_attn.causal_attention_vmem(q[:, :100], k[:, :100], v[:, :100], 0.125)
+    with pytest.raises(ValueError, match="MAX_L"):
+        big = torch.zeros((1, 640, 4, 64), device=cuda)
+        vmem_attn.causal_attention_vmem(big, big[:, :, :2], big[:, :, :2], 0.125)
+    assert (vmem_attn.launches, vmem_attn.launches_bwd) == (n_f + 3, n_b + 1)
+
+
+def fused_ce_inputs(N, D, V, dtype, device, seed=1, spread=1.0):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy((rng.standard_normal((N, D)) * 0.3 * spread).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy((rng.standard_normal((D, V)) * 0.05 * spread).astype(np.float32)).to(device, dtype)
+    tgt = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).to(device)
+    g = torch.from_numpy((rng.random(N) > 0.3).astype(np.float32)).to(device)
+    return h, w, tgt, g / g.sum()
+
+
+def _ce_grad(fn, h, w, tgt, g):
+    h = h.detach().clone().requires_grad_(True)
+    nll = fn(h, w, tgt)
+    nll.backward(g)
+    return nll.detach(), h.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (300, 256, 1024),  # the CPU tests' shape: a ragged row tile
+        (8, 128, 512),  # the smallest the gate admits
+        (100, 256, 1024),
+        (256, 256, 1024),
+        (515, 384, 9216),  # two backward chunks (8192 + 1024), five row tiles
+    ],
+)
+def test_fused_ce_kernel_matches_plain_float32(cuda, shape):
+    """On the card, float32: rows within 1e-5, dh within 1e-5 of its largest
+    element, for row counts that fill no tile and a vocabulary that spans
+    more than one backward chunk."""
+    N, D, V = shape
+    h, w, tgt, g = fused_ce_inputs(N, D, V, torch.float32, cuda)
+    tgt[0] = V - 1  # a target in the last vocabulary column
+    tgt[-1] = 0
+    got, got_dh = _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    torch.cuda.synchronize()
+    want, want_dh = _ce_grad(fused_ce.linear_ce_rows_plain, h, w, tgt, g)
+    assert got.shape == (N,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert got_dh.shape == (N, D) and got_dh.dtype == torch.float32
+    assert float((got_dh - want_dh).abs().max()) <= 1e-5 * float(want_dh.abs().max())
+
+
+@pytest.mark.gpu
+def test_fused_ce_kernel_extreme_logits(cuda):
+    """Logits scaled x12 (magnitudes of several hundred): the online rescale
+    across tiles and splits must hold; rows within 1e-4."""
+    h, w, tgt, _ = fused_ce_inputs(300, 256, 1024, torch.float32, cuda, seed=2, spread=12.0)
+    got = fused_ce.linear_ce_rows(h, w, tgt)
+    want = fused_ce.linear_ce_rows_plain(h, w, tgt)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 256, 2048), (515, 384, 9216), (8, 128, 512)])
+def test_fused_ce_kernel_matches_plain_bfloat16(cuda, shape):
+    """On the card, bfloat16 (the tensor-core tile): the products are exact in
+    float32 on both sides, so rows agree within 1e-4 (sum order only); dh
+    within 2e-2 of its largest element: the kernel rounds the coefficients to
+    bfloat16 before the second product (2^-9 relative each) and dh itself is
+    rounded to bfloat16."""
+    h, w, tgt, g = fused_ce_inputs(*shape, torch.bfloat16, cuda, seed=3)
+    tgt[0] = shape[2] - 1
+    got, got_dh = _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    want, want_dh = _ce_grad(fused_ce.linear_ce_rows_plain, h, w, tgt, g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert got_dh.dtype == torch.bfloat16
+    assert float((got_dh.float() - want_dh.float()).abs().max()) <= 2e-2 * float(want_dh.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_fused_ce_wrapper_counts_and_checks(cuda):
+    h, w, tgt, g = fused_ce_inputs(64, 128, 512, torch.float32, cuda)
+    n_f, n_b = fused_ce.launches, fused_ce.launches_bwd
+    _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    assert (fused_ce.launches, fused_ce.launches_bwd) == (n_f + 1, n_b + 1)
+    with pytest.raises(ValueError, match="frozen"):
+        fused_ce.linear_ce_rows(h, w.clone().requires_grad_(True), tgt)
+    with pytest.raises(TypeError):
+        fused_ce.linear_ce_rows(h, w.bfloat16(), tgt)
+    with pytest.raises(TypeError):
+        fused_ce.linear_ce_rows(h.half(), w.half(), tgt)
+    with pytest.raises(ValueError, match="multiple"):
+        fused_ce.linear_ce_rows(h[:, :64], w[:64], tgt)
+    assert (fused_ce.launches, fused_ce.launches_bwd) == (n_f + 1, n_b + 1)
+
+
+def test_fused_ce_split_plan_covers_the_vocabulary():
+    """The forward grid's plan: every column tile belongs to one split, no
+    split is empty, and small row counts get more splits."""
+    for n, v in ((2044, 152064), (4088, 32768), (8, 512), (300, 1024)):
+        splits, per = fused_ce.split_plan(n, v)
+        tiles = v // fused_ce.TILE
+        assert splits >= 1 and per >= 1
+        assert (splits - 1) * per < tiles <= splits * per
+    assert fused_ce.split_plan(8, 152064)[0] > fused_ce.split_plan(4088, 152064)[0]
