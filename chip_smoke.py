@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA card: the measure-and-SSML step, the LLM
+"""Drive the PyTorch port on one CUDA card: the measure-and-SSML step, the
+eight-step voice pipeline, the standalone frame and cumsum kernels, the LLM
 serving path and the LLM training path (LoRA fine-tuning).
 
     python3 chip_smoke.py [--seed 0]
@@ -7,7 +8,7 @@ serving path and the LLM training path (LoRA fine-tuning).
 Run from the root of a checkout, on a machine with an NVIDIA H100. It
 
 1. builds the port's CUDA kernels from ``prosody_control_french_tts_tpu_torch/csrc``
-   (``nvcc``, into ``build/torch_kernels/``);
+   (``nvcc``, one process per source, into ``build/torch_kernels/``);
 2. synthesises a full-width voice from the seed (10 segments of 8–23 s at
    44.1 kHz, word TextGrids, a raw rendering of each segment) and runs
    ``measure_and_build_ssml(..., device="cuda")`` with kernel A's and B's
@@ -15,31 +16,51 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
 3. checks that result: finite rows, the three CSVs, every kernel launched,
    a 200 Hz tone read as 200 Hz, and a small voice measured on the card
    agreeing with the plain PyTorch path on the CPU;
-4. serves the LLM at the full width of ``LLMConfig.qwen25_7b()`` in
+4. runs the eight-step voice pipeline, ``AudioPipeline(name, cfg,
+   device="cuda")``, on a brute recording made of the same 10 segments
+   joined by 1.5 s of zeros: Preprocess must split it back into 10 segments;
+   each segment then gets its transcript from the synth word lists, and the
+   other seven steps run with the fake TTS and the energy aligner, cold, then
+   all eight warm with every kernel count set to 0 just before and read just
+   after (A and B once per measure call, C/D/E never: they have no caller),
+   then once more under torch.profiler; checks every artifact of the JAX
+   package's end-to-end test, and one synthesized wav per SSML chunk (a
+   failed synthesis would otherwise pass as silence), prints the break report, per-step seconds,
+   audio-s/s and the device-busy share; and runs the eight steps on a
+   2-segment voice on the card and on the CPU, holding the silence ranges,
+   the aligner's TextGrids and the segment / syntagme / pause columns equal
+   and the adjustment columns within 0.05 points;
+5. holds the frame gather (TPU kernels C and D, one CUDA kernel behind
+   ``extract_frames``, ``extract_frames_aligned`` and ``frames_op``) and the
+   chunk cumsum (kernel E) equal to their plain versions at the JAX tests'
+   shapes and at the measure voice's (frames B 10, T 1,040,384, F 4,715,
+   W 880; the cumsum of its x² padded to [16, 1,040,384]), and times each
+   there, its plain version and one library formulation as CUDA-graph
+   replays;
+6. holds kernels A and B against their plain versions on the measure path's
+   own tensors (A within 1e-6, B exactly);
+7. times A, B, their plain versions and ``torch.topk`` (CUDA events);
+8. serves the LLM at the full width of ``LLMConfig.qwen25_7b()`` in
    bfloat16, weights made on the card from the seed: ``fuse_decode_params``
    then ``greedy_generate_fused`` (16 prompts of 64 tokens, 128 new tokens),
    with kernel F's launch count set to 0 just before and read just after
-   (layers × 127), cold and warm, and checks the tokens;
-5. serves the JAX bench's geometry (12 layers, dim 896; 64 prompts of 64
+   (layers × 127), cold and warm, and checks the tokens; holds F against its
+   plain version (2e-2 in bfloat16, 2e-5 in float32) and times it by its
+   kernels' durations under torch.profiler (the host's launch overhead
+   exceeds the kernel's time);
+9. serves the JAX bench's geometry (12 layers, dim 896; 64 prompts of 64
    tokens, 256 new) in bfloat16 and with the int8b weight stream, and holds
    the int8b tree's tokens against its dequantized tree's in float32;
-6. runs the two-stage cascade with tiny models on the card and on the CPU;
-7. holds each kernel against its plain PyTorch version on the paths' own
-   tensors (A within 1e-6, B exactly, F within 2e-2 in bfloat16 and 2e-5 in
-   float32);
-8. times each kernel, its plain version and, where one exists, one PyTorch
-   library call computing the same function (A and B with CUDA events; F by
-   its kernels' durations under torch.profiler, because the host's launch
-   overhead exceeds the kernel's time);
-9. trains: LoRA steps at the full width and depth of
-   ``LLMConfig.qwen25_7b()`` (``attn_impl="vmem"``, ``fused_qkv``, rank 8,
-   bfloat16 frozen base, B 4, L 512, fused loss; one warm step and four more,
-   kernel G counted layers x steps forward and backward, kernel H steps each,
-   frozen leaves unchanged, losses falling), then at the JAX bench's training
-   geometry (12 layers, dim 896, B 8, L 512, ``scan_steps``);
-10. holds the loss curve of ("vmem", "fused") on the card against ("dot",
+10. runs the two-stage cascade with tiny models on the card and on the CPU;
+11. trains: LoRA steps at the full width and depth of
+    ``LLMConfig.qwen25_7b()`` (``attn_impl="vmem"``, ``fused_qkv``, rank 8,
+    bfloat16 frozen base, B 4, L 512, fused loss; one warm step and four more,
+    kernel G counted layers x steps forward and backward, kernel H steps each,
+    frozen leaves unchanged, losses falling), then at the JAX bench's training
+    geometry (12 layers, dim 896, B 8, L 512, ``scan_steps``);
+12. holds the loss curve of ("vmem", "fused") on the card against ("dot",
     "dense") on the card and on the CPU at a small float32 shape (5e-4);
-11. holds kernels G and H, forward and backward, against their plain versions
+13. holds kernels G and H, forward and backward, against their plain versions
     on tensors captured from those steps and on edge shapes, shows that H
     allocates less than an [N, V] tensor, and times the four launches, their
     plain versions and the library calls (``scaled_dot_product_attention``,
@@ -47,9 +68,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
     replays of CUDA graphs between CUDA events.
 
 It prints the card's name and power limit, one line per kernel, a
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Any failed phase raises, and the script exits non-zero. Without a card it
-exits non-zero at once and prints no result.
+``{"kernels": [...]}`` line with ten entries, and last ``{"ok": true,
+"device": {...}}``. Any failed phase raises, and the script exits non-zero.
+Without a card it exits non-zero at once and prints no result.
 """
 
 from __future__ import annotations
@@ -58,6 +79,7 @@ import argparse
 import collections
 import csv
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -124,6 +146,19 @@ KERNEL_H_FWD = dict(
     replaces="prosody_control_french_tts_tpu/ops/fused_ce.py:120",
 )
 KERNEL_H_BWD = dict(KERNEL_H_FWD, name="fused_ce_bwd", replaces="prosody_control_french_tts_tpu/ops/fused_ce.py:162")
+KERNEL_C = dict(
+    name="frames",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/frames.cu",
+    replaces="prosody_control_french_tts_tpu/ops/pallas_kernels.py:75",
+)
+KERNEL_D = dict(KERNEL_C, name="frames_aligned", replaces="prosody_control_french_tts_tpu/ops/pallas_kernels.py:183")
+KERNEL_E = dict(
+    name="chunk_cumsum",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/chunk_cumsum.cu",
+    replaces="prosody_control_french_tts_tpu/ops/pallas_kernels.py:362",
+)
 
 
 def card_line() -> str:
@@ -252,6 +287,347 @@ def profile_measure(fn) -> dict:
 def read_csv(path):
     with open(path, newline="", encoding="utf-8") as f:
         return list(csv.DictReader(f))
+
+
+# ---------------------------------------------------------------------------
+# the eight-step voice pipeline
+# ---------------------------------------------------------------------------
+
+PIPE_GAP_S = 1.5  # zeros between the segments of the brute recording
+SSML_TAG = re.compile(r'<prosody pitch="[+-]\d+\.\d{2}%" rate="[+-]\d+\.\d{2}%" volume="[+-]\d+\.\d{2}%">')
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def build_brute_voice(base: Path, name: str, seed: int, n_segments: int, seconds=(8.0, 23.0)):
+    """``utils.synth`` segments joined by PIPE_GAP_S of zeros into
+    ``Data/voice/<name>/brute/segment.wav``. Returns (per-segment
+    transcripts from the synth word lists, audio seconds of the recording)."""
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.utils.synth import synth_voice
+    from prosody_control_french_tts_tpu_torch.utils.textgridio import read_textgrid
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav, write_wav
+
+    seg_files, tg_dir, _ = synth_voice(base / "synth", seed=seed, n_segments=n_segments, seconds=seconds)
+    parts, texts = [], []
+    for p in seg_files:
+        a = read_wav(p)
+        parts += [np.asarray(a.samples, np.float32), np.zeros(int(PIPE_GAP_S * a.rate), np.float32)]
+        texts.append(" ".join(iv.mark.strip() for iv in read_textgrid(tg_dir / f"{p.stem}.TextGrid").tiers[0] if iv.mark.strip()))
+    x = np.concatenate(parts[:-1])
+    brute = base / "Data" / "voice" / name / "brute"
+    brute.mkdir(parents=True)
+    write_wav(brute / "segment.wav", x, a.rate)
+    return texts, x.size / a.rate
+
+
+def pipeline_config(base: Path, name: str):
+    from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
+
+    return PipelineConfig.from_dict({
+        "data_dir": "Data/voice", "out_dir": "Out", "voice_names": [name], "azure_voice_name": "fr-FR-DeniseNeural",
+        "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300},
+        "tts_backend": "fake", "aligner": "energy",
+    }, base)
+
+
+def run_steps(pipe, steps) -> tuple:
+    """``pipe.run()`` over ``steps`` (None: all eight) → (step records,
+    wall seconds to the end of the device's work)."""
+    pipe.cfg.steps_to_run = steps
+    sync(pipe.device)
+    t0 = time.perf_counter()
+    timer = pipe.run()
+    sync(pipe.device)
+    return timer.records, time.perf_counter() - t0
+
+
+def drive_voice(base: Path, name: str, texts, device) -> tuple:
+    """Preprocess, the transcripts, then the other seven steps → (pipeline,
+    step records, wall seconds)."""
+    from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
+    from prosody_control_french_tts_tpu_torch.prosody.measure import segment_sort_key
+
+    pipe = AudioPipeline(name, pipeline_config(base, name), device=device)
+    pre, pre_s = run_steps(pipe, ["Preprocess"])
+    segs = sorted((pipe.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
+    if len(segs) != len(texts):
+        raise SystemExit(f"pipeline {name}: the silence split gave {len(segs)} segments of {len(texts)} ({pipe.last_split})")
+    pipe.transcription_raw_dir.mkdir(parents=True, exist_ok=True)
+    for seg, text in zip(segs, texts):
+        (pipe.transcription_raw_dir / f"{seg.stem}.txt").write_text(text, encoding="utf-8")
+    rest, rest_s = run_steps(pipe, pipe.STEP_NAMES[1:])
+    return pipe, pre + rest, pre_s + rest_s
+
+
+def check_pipeline_artifacts(pipe, n_segments: int) -> None:
+    """The artifacts of the JAX package's end-to-end test
+    (tests/test_pipeline_e2e.py), each present and well formed."""
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.utils.textgridio import read_textgrid
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav
+
+    res, s = pipe.results_dir, pipe.cfg.prosody
+    for path in (pipe.bdd_ssml_csv, pipe.bdd_syntagme_ssml_csv, pipe.bdd_syntagme_synth_csv):
+        if not path.exists():
+            raise SystemExit(f"pipeline: {path.name} missing")
+    rows = read_csv(pipe.bdd_syntagme_ssml_csv)
+    if not {"segment", "syntagme", "pause", "ssml"} <= set(rows[0]) or len({r["segment"] for r in rows}) != n_segments:
+        raise SystemExit("pipeline: BDD_syntagme_ssml.csv has the wrong columns or segments")
+    text_rows = [r for r in rows if r["syntagme"].strip()]
+    if not text_rows or not all(SSML_TAG.search(r["ssml"]) for r in text_rows):
+        raise SystemExit("pipeline: a syntagme row lacks its <prosody> tag")
+    if not all('<break time="' in r["ssml"] for r in rows if not r["syntagme"].strip() and int(float(r["pause"])) >= 50):
+        raise SystemExit("pipeline: a pause row lacks its <break>")
+    up = (2 ** (s.pitch_semitones / 12) - 1) * 100
+    dn = (2 ** (-s.pitch_semitones * s.pitch_lower_clip_factor / 12) - 1) * 100
+    for r in pipe.last_measure.rows:
+        if not (dn - 1e-3 <= r.raw_pitch <= up + 1e-3 and abs(r.raw_volume) <= s.volume_pct + 1e-3
+                and -s.rate_percent * 1.5 - 1e-3 <= r.raw_rate <= s.rate_percent + 1e-3):
+            raise SystemExit(f"pipeline: adjustments outside their clamps: {r}")
+    sm = [r.pitch_smooth for r in pipe.last_measure.rows]
+    if any(abs(b - a) > s.max_jump_percent + 1e-4 for a, b in zip(sm, sm[1:])):
+        raise SystemExit("pipeline: the smoothed pitch jumps past max_jump_percent")
+    xmls = sorted(pipe.xml_dir.glob("*.xml"))
+    if len(xmls) != len([r for r in read_csv(pipe.bdd_syntagme_synth_csv) if re.search(r"\w", r["syntagme"]) and r["syntagme"].strip() != "..."]):
+        raise SystemExit(f"pipeline: {len(xmls)} xml files")
+    # a chunk whose synthesis fails becomes silence with a warning and no wav
+    # (Synthesize+Merge): one wav per xml file shows that every chunk was voiced
+    wavs = sorted(p.stem for p in pipe.audio_out.glob("*.wav"))
+    if wavs != [p.stem for p in xmls]:
+        raise SystemExit(f"pipeline: {len(wavs)} synthesized wavs for {len(xmls)} xml files")
+    if len(list(pipe.raw_audio_dir.glob("*.wav"))) != n_segments:
+        raise SystemExit("pipeline: Raw Synthesis did not voice every segment")
+    if any("<break" in p.read_text(encoding="utf-8") for p in xmls):
+        raise SystemExit("pipeline: an xml file of the synthesis CSV holds a <break>")
+    out = read_wav(res / "OUT.wav")
+    if out.duration_seconds < 2.0 or not np.isfinite(out.samples).all():
+        raise SystemExit(f"pipeline: OUT.wav {out.duration_seconds:.2f} s")
+    if len(list(pipe.audio_ssml_dir.glob("segment_ph*.wav"))) != n_segments:
+        raise SystemExit("pipeline: segmented_audio does not hold one wav per segment")
+    j = json.loads((res / f"training_data_{pipe.name}.json").read_text(encoding="utf-8"))
+    if set(j) != {"x", "y"} or set(j["y"]) != {"parsed_sequence", "stripped_ssml", "raw_ssml"} or not j["y"]["parsed_sequence"]:
+        raise SystemExit("pipeline: training JSON schema")
+    if pipe.name not in json.loads((pipe.out_dir / "results" / "bdd.json").read_text(encoding="utf-8")):
+        raise SystemExit("pipeline: bdd.json lacks the voice")
+    if sum(1 for iv in read_textgrid(res / "OUT.TextGrid").tiers[0] if iv.mark.strip()) < 5:
+        raise SystemExit("pipeline: OUT.TextGrid holds fewer than 5 words")
+    if not (res / "transcription_final.txt").read_text(encoding="utf-8").strip():
+        raise SystemExit("pipeline: empty transcription_final.txt")
+    cmp_rows = read_csv(res / "pause_comparison_full.csv")
+    if not cmp_rows or not {"segment", "nat_voice_ms", "synth_voice_ms", "diff_ms"} <= set(cmp_rows[0]):
+        raise SystemExit("pipeline: pause_comparison_full.csv")
+    steps = [json.loads(line)["step"] for line in (res / "step_timings.jsonl").read_text().splitlines()]
+    if not steps or not (res / "used_config.yaml").read_text(encoding="utf-8").startswith("aligner: energy"):
+        raise SystemExit("pipeline: step_timings.jsonl or used_config.yaml")
+
+
+def kernel_counts() -> dict:
+    from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, frames, viterbi
+
+    return {"pitch_candidates": candidates.launches, "viterbi": viterbi.launches, "frames": frames.launches,
+            "chunk_cumsum": chunk_cumsum.launches}
+
+
+def reset_kernel_counts() -> None:
+    from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, frames, viterbi
+
+    candidates.launches = viterbi.launches = frames.launches = chunk_cumsum.launches = 0
+
+
+def per_step(records) -> dict:
+    return {r["step"]: r["seconds"] for r in records}
+
+
+def pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> dict:
+    """Phase 4 of the module docstring. Returns the kernel counts of the warm
+    run."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.core import profiling
+
+    dev = torch.device(device)
+    name = "brute_voice"
+    base = tmp / "pipeline"
+    t0 = time.perf_counter()
+    texts, audio_s = build_brute_voice(base, name, seed, FULL_SEGMENTS)
+    print(f"pipeline voice: {FULL_SEGMENTS} segments joined by {PIPE_GAP_S} s of zeros, {audio_s:.1f} s of audio, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    profiling.reset_phases()
+    pipe, cold, cold_s = drive_voice(base, name, texts, dev)
+    cold_phases = dict(profiling.PHASES)
+    print(f"pipeline preprocess: {len(pipe.last_split)} segments from the brute recording, ranges (ms) {pipe.last_split}")
+
+    reset_kernel_counts()
+    profiling.reset_phases()
+    warm, warm_s = run_steps(pipe, None)
+    counts = kernel_counts()
+    warm_phases = dict(profiling.PHASES)
+    print(f"pipeline warm run launches: {json.dumps(counts)}")
+    if counts["pitch_candidates"] != 1 or counts["viterbi"] != 1:
+        raise SystemExit(f"pipeline: kernels A and B must launch once per measure call, got {counts}")
+    if counts["frames"] or counts["chunk_cumsum"]:
+        raise SystemExit(f"pipeline: kernels C/D/E have no caller on this path, got {counts}")
+    check_pipeline_artifacts(pipe, FULL_SEGMENTS)
+    rep = pipe.last_breaks
+    print(f"pipeline breaks: {rep.total} compared, {rep.within} within ±5 ms ({100.0 * rep.within / max(rep.total, 1):.1f} %), "
+          f"mean |diff| {rep.avg_abs_diff:.1f} ms, mean match quality {rep.avg_match_quality:.2f}")
+    trace = profile_measure(lambda: pipe.run())
+
+    # card against CPU on a 2-segment voice
+    small = tmp / "pipeline_small"
+    texts2, small_s = build_brute_voice(small / "card", "small", seed + 1, 2, seconds=(3.0, 5.0))
+    build_brute_voice(small / "cpu", "small", seed + 1, 2, seconds=(3.0, 5.0))
+    p_card, _, _ = drive_voice(small / "card", "small", texts2, dev)
+    p_cpu, _, _ = drive_voice(small / "cpu", "small", texts2, "cpu")
+    if p_card.last_split != p_cpu.last_split:
+        raise SystemExit(f"small voice: silence ranges card {p_card.last_split} != CPU {p_cpu.last_split}")
+    for tg in sorted(p_cpu.textgrid_dir.glob("*.TextGrid")):
+        if (p_card.textgrid_dir / tg.name).read_bytes() != tg.read_bytes():
+            raise SystemExit(f"small voice: TextGrid {tg.name} differs between card and CPU")
+    cols = lambda p: [(r["segment"], r["syntagme"], r["pause"]) for r in read_csv(p.bdd_syntagme_ssml_csv)]  # noqa: E731
+    if cols(p_card) != cols(p_cpu):
+        raise SystemExit("small voice: segment / syntagme / pause columns differ between card and CPU")
+    adj_err = max(max(abs(a.pitch_smooth - b.pitch_smooth), abs(a.rate_smooth - b.rate_smooth), abs(a.raw_volume - b.raw_volume))
+                  for a, b in zip(p_card.last_measure.rows, p_cpu.last_measure.rows))
+    if adj_err > 0.05:
+        raise SystemExit(f"small voice: card vs CPU adjustments differ by {adj_err} points")
+    same_csv = p_card.bdd_syntagme_ssml_csv.read_bytes() == p_cpu.bdd_syntagme_ssml_csv.read_bytes()
+    same_out = (p_card.results_dir / "OUT.TextGrid").read_bytes() == (p_cpu.results_dir / "OUT.TextGrid").read_bytes()
+    print(f"pipeline small voice ({small_s:.1f} s, 2 segments) card vs CPU: ranges, TextGrids and segment/syntagme/pause columns equal; "
+          f"adjustments max |diff| {adj_err:.2e} points; BDD_syntagme_ssml.csv byte-equal {same_csv}; OUT.TextGrid byte-equal {same_out}")
+
+    print(f"pipeline eight steps (warm): {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s, "
+          f"{audio_s / cold_s:.1f} audio-s/s; card={card}")
+    print("pipeline steps warm (s): " + json.dumps(per_step(warm)))
+    print("pipeline steps cold (s): " + json.dumps(per_step(cold)))
+    print("pipeline phases warm: " + json.dumps({k: round(v, 4) for k, v in sorted(warm_phases.items())}))
+    print("pipeline phases cold: " + json.dumps({k: round(v, 4) for k, v in sorted(cold_phases.items())}))
+    print("profile (warm pipeline run): " + json.dumps(trace))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# kernels C/D (frame gather) and E (chunk cumsum)
+# ---------------------------------------------------------------------------
+
+
+def check_equal(got, want, label: str) -> float:
+    """Holds a kernel's output bit-equal to its plain version; returns the
+    max |difference| as computed (0.0 when equal)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise SystemExit(f"{label}: kernel shape {tuple(got.shape)} != plain {tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise SystemExit(f"{label}: kernel differs from its plain version ({(got != want).sum()} elements, max |diff| {err})")
+    return err
+
+
+def measure_shape_starts(T: int, B: int):
+    """The Boersma frame starts ``ops.pitch`` uses at a padded length T (the
+    measure voice's grid), clipped to the contract domain, for B rows."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import pitch
+
+    g = pitch._geometry(T, 44100.0, pitch.PitchParams())
+    cls = pitch._affine_frame_classes(g, T)
+    i = torch.arange(g["n_frames"])
+    s0 = torch.tensor(cls["starts0"])
+    start = (s0[i % cls["q"]] + cls["stride"] * (i // cls["q"])).clamp(0, T - g["nsamp_window"])
+    return start.to(torch.int32).expand(B, -1).contiguous(), torch.from_numpy(pitch._hanning(g["nsamp_window"]))
+
+
+def kernels_cde_phase(seg_files, card: str, device="cuda") -> list:
+    """Phase 5 of the module docstring. Returns the rows of C, D and E for the
+    ``kernels`` line (launches filled in by the caller)."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import chunk_cumsum, frames, pcm
+    from prosody_control_french_tts_tpu_torch.prosody.measure import _load_padded
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    wrappers = ("extract_frames", "extract_frames_aligned", "frames_op")
+    err = {fn: 0.0 for fn in wrappers + ("chunk_cumsum",)}
+
+    def hann(W):
+        return torch.from_numpy((0.5 - 0.5 * np.cos(2 * np.pi * np.arange(W) / W)).astype(np.float32))
+
+    # the JAX tests' shapes
+    for shape_B, T, W, F, edges in ((None, 8192, 256, 37, False), (None, 50000, 880, 37, True), (2, 8192, 256, 37, False)):
+        x = torch.from_numpy(rng.normal(size=(T,) if shape_B is None else (shape_B, T)).astype(np.float32))
+        s = rng.integers(0, T - W + 1, size=(F,) if shape_B is None else (shape_B, F)).astype(np.int32)
+        if edges:
+            e = np.array([0, 1, 1023, 1024, 1025, 2047, 2048, T - W], np.int32)
+            s[..., : e.size] = e
+        s, w = torch.from_numpy(s), hann(W)
+        want = frames.extract_frames_plain(x, s, w).to(dev)
+        for fn in wrappers:
+            e = check_equal(getattr(frames, fn)(x.to(dev), s.to(dev), w.to(dev), W), want, f"{fn} T {T} W {W} B {shape_B}")
+            err[fn] = max(err[fn], e)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(16, 4096)).astype(np.float32)).to(dev)
+    e = check_equal(chunk_cumsum.chunk_cumsum(x), chunk_cumsum.chunk_cumsum_plain(x), "chunk_cumsum [16, 4096]")
+    err["chunk_cumsum"] = max(err["chunk_cumsum"], e)
+
+    # the measure voice's shape
+    nat, _, _, _ = _load_padded(seg_files)
+    xv = pcm.i16_to_f32(torch.from_numpy(nat)).to(dev)
+    B, T = xv.shape
+    starts, win = measure_shape_starts(T, B)
+    starts, win = starts.to(dev), win.to(dev)
+    F, W = starts.shape[1], win.shape[0]
+    want = frames.extract_frames_plain(xv, starts, win)
+    for fn in wrappers:
+        err[fn] = max(err[fn], check_equal(getattr(frames, fn)(xv, starts, win, W), want, f"{fn} at the measure shape"))
+    del want
+    R = ((B + 7) // 8) * 8
+    x2 = torch.zeros((R, T), dtype=torch.float32, device=dev)
+    x2[:B] = xv * xv
+    e = check_equal(chunk_cumsum.chunk_cumsum(x2), chunk_cumsum.chunk_cumsum_plain(x2), f"chunk_cumsum [{R}, {T}]")
+    err["chunk_cumsum"] = max(err["chunk_cumsum"], e)
+    print(f"check: frames kernel equal to plain at T 8192 / W 256 / F 37, T 50000 / W 880 (edge starts), B 2, and "
+          f"[{B}, {T}] -> [{B}, {F}, {W}]; chunk_cumsum equal to plain at [16, 4096] and [{R}, {T}] (all exact)")
+
+    idx = (starts.long()[..., None] + torch.arange(W, device=dev)).clamp(0, T - 1).reshape(B, -1)
+    ms = {fn: graph_ms(lambda fn=fn: getattr(frames, fn)(xv, starts, win, W), reps=10) for fn in wrappers}
+    plain_f = graph_ms(lambda: frames.extract_frames_plain(xv, starts, win), reps=3)
+    lib_f = graph_ms(lambda: xv.gather(1, idx).view(B, F, W) * win, reps=5)
+    del idx
+    bytes_f = B * F * W * 4 + B * T * 4 + B * F * 4 + W * 4
+    ops_f = B * F * W
+    ms_e = graph_ms(lambda: chunk_cumsum.chunk_cumsum(x2), reps=20)
+    plain_e = graph_ms(lambda: chunk_cumsum.chunk_cumsum_plain(x2), reps=3)
+    lib_e = graph_ms(lambda: (torch.cumsum(x2.view(R, -1, 1024), -1) - x2.view(R, -1, 1024)).view(R, T), reps=10)
+    bytes_e = 2 * R * T * 4
+    ops_e = 11 * R * T  # ten ladder adds and one subtraction per element
+
+    rows = []
+    for spec, t, plain, lib, nbytes, nops, shape, max_err in (
+        (KERNEL_C, ms["extract_frames"], plain_f, lib_f, bytes_f, ops_f, dict(B=B, T=T, F=F, W=W),
+         max(err["extract_frames"], err["frames_op"])),
+        (KERNEL_D, ms["extract_frames_aligned"], plain_f, lib_f, bytes_f, ops_f, dict(B=B, T=T, F=F, W=W),
+         err["extract_frames_aligned"]),
+        (KERNEL_E, ms_e, plain_e, lib_e, bytes_e, ops_e, dict(R=R, C=T), err["chunk_cumsum"]),
+    ):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / PEAK_FLOPS["f32"] * 1e3
+        rows.append(dict(spec, max_abs_err=max_err, ms=t, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib, check="pass", shape=shape))
+        print(f"kernel {spec['name']} ({json.dumps(shape)}): ms={t:.4f} bound_ms={max(t_bytes, t_ops):.5f} ({nbytes} bytes, {nops} ops) "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} card={card}")
+    print(f"kernel frames via frames_op: ms={ms['frames_op']:.4f}; card={card}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +868,7 @@ def time_kernel_f(call) -> dict:
 
 
 def llm_phases(args, card: str) -> dict:
-    """Phases 4–6 of the module docstring, and kernel F's check and timing
+    """Phases 8–10 of the module docstring, and kernel F's check and timing
     on the tensors those paths gave it. Returns kernel F's row."""
     import dataclasses
 
@@ -505,7 +881,7 @@ def llm_phases(args, card: str) -> dict:
 
     rng = np.random.default_rng(args.seed)
 
-    # -- 4. LLM serving at the full width of qwen25_7b ----------------------
+    # -- 8. LLM serving at the full width of qwen25_7b ----------------------
     cfg = llm.LLMConfig.qwen25_7b()  # full width and full depth
     B, P, NEW = 16, 64, 128
     t0 = time.perf_counter()
@@ -542,7 +918,7 @@ def llm_phases(args, card: str) -> dict:
     del fp, cap_7b, call_7b, toks, toks_w
     torch.cuda.empty_cache()
 
-    # -- 5. the JAX bench's geometry, bf16 and int8b -------------------------
+    # -- 9. the JAX bench's geometry, bf16 and int8b -------------------------
     bcfg = llm.LLMConfig(vocab_size=32768, dim=896, layers=12, heads=14, kv_heads=2, ffn=2432, max_len=512, lora_rank=8)
     B, P, NEW = 64, 64, 256
     fp, _ = random_fused_tree(bcfg, args.seed + 2)
@@ -594,7 +970,7 @@ def llm_phases(args, card: str) -> dict:
     del fp, fq, trees, cap_b, call_b
     torch.cuda.empty_cache()
 
-    # -- 6. the cascade with tiny models, card against CPU -------------------
+    # -- 10. the cascade with tiny models, card against CPU -------------------
     tok = WordPieceTokenizer.train(FRENCH + [cascade.format_example(cascade.TASK_A, FRENCH[0], FRENCH[0] + " <break/>")], vocab_size=250, min_freq=1)
     ccfg = llm.LLMConfig(vocab_size=len(tok), dim=128, layers=2, heads=4, kv_heads=2, ffn=256, max_len=256, dtype=torch.float32)
     on_cpu = [llm.DecoderLM(ccfg, device="cpu", seed=args.seed + s) for s in (10, 11)]
@@ -689,7 +1065,7 @@ def frozen_fingerprint(model) -> dict:
 
 def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: bool):
     """init_train + make_train_step on the card, one warm step then
-    TRAIN_STEPS more on a repeated batch; the checks of phase 9. Returns
+    TRAIN_STEPS more on a repeated batch; the checks of phase 11. Returns
     (launch counts of all the steps, captured tensors for the kernel checks,
     times, a function that profiles one more step and prints its split).
     The split is taken last of all: once the trainers have run, torch.profiler
@@ -771,7 +1147,7 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
 
 
 def parity_on_card(seed: int) -> None:
-    """Phase 10: 4 steps at a small float32 shape, ("vmem", "fused") on the
+    """Phase 12: 4 steps at a small float32 shape, ("vmem", "fused") on the
     card against ("dot", "dense") on the card and on the CPU, from the same
     initial weights. The shape is that of the JAX package's train-step parity
     test with dim 256 instead of 128, so that the head dim is 64, one of the
@@ -1076,7 +1452,7 @@ def time_kernel_h(h, w, tgt, g) -> dict:
 
 
 def train_phases(args, card: str) -> list:
-    """Phases 9-11 of the module docstring. Returns the rows of G forward, G
+    """Phases 11-13 of the module docstring. Returns the rows of G forward, G
     backward, H forward and H backward for the ``kernels`` line."""
     import dataclasses
     import gc
@@ -1089,7 +1465,7 @@ def train_phases(args, card: str) -> list:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- 9. trainers ----------------------------------------------------------
+    # -- 11. trainers ----------------------------------------------------------
     free()  # the serving trees are gone: return their blocks before the 7B trainer
     cfg7 = dataclasses.replace(llm.LLMConfig.qwen25_7b(), attn_impl="vmem", fused_qkv=True, lora_rank=8)
     counts7, cap7, stats7, split7 = run_trainer("7B", cfg7, 4, 512, args.seed, card, scan=False)
@@ -1099,10 +1475,10 @@ def train_phases(args, card: str) -> list:
     countsb, capb, statsb, splitb = run_trainer("bench geometry", bcfg, 8, 512, args.seed + 2, card, scan=True)
     free()
 
-    # -- 10. parity on the card -------------------------------------------------
+    # -- 12. parity on the card -------------------------------------------------
     parity_on_card(args.seed)
 
-    # -- 11. kernels against their plain versions, and their times ---------------
+    # -- 13. kernels against their plain versions, and their times ---------------
     errs = {}
     for label, cap in (("7B geometry", cap7), ("bench geometry", capb)):
         g_err = check_kernel_g(cap["q"], cap["k"], cap["v"], cap["dout"], label)
@@ -1241,7 +1617,15 @@ def main() -> int:
             raise SystemExit(f"small voice: card vs CPU differ by {small_err} points")
         print(f"reference: 200 Hz tone -> {tone_med:.3f} Hz; small voice card vs CPU max |diff| {small_err:.2e} points")
 
-    # -- 7. kernels A and B vs plain on the measure path's own tensors ------
+        # -- 4. the eight-step voice pipeline --------------------------------
+        pipe_counts = pipeline_phase(tmp, args.seed, card)
+
+        # -- 5. kernels C/D and E against their plain versions, and their times
+        cde_rows = kernels_cde_phase(seg_files, card)
+        for row in cde_rows:
+            row["launches"] = pipe_counts["chunk_cumsum" if row["name"] == "chunk_cumsum" else "frames"]
+
+    # -- 6. kernels A and B vs plain on the measure path's own tensors ------
     (r, k, min_lag, max_lag, vth), _ = cap_a.calls[0]
     (delta, lf, voiced, freq, vuv, jump), _ = cap_b.calls[0]
     got_a = candidates.topk_parabolic(r, k, min_lag, max_lag, vth)
@@ -1259,7 +1643,7 @@ def main() -> int:
     print(f"check: pitch_candidates r {tuple(r.shape)} max |err| {err_a:.3e} (tol {TOL_A}); "
           f"viterbi {tuple(delta.shape)} max |err| {err_b} (exact)")
 
-    # -- 8. timing of A and B ----------------------------------------------
+    # -- 7. timing of A and B ----------------------------------------------
     R, L = r.shape
     bytes_a = R * L * 4 + R * k * (4 + 4 + 1)
     lag = torch.arange(L, device=dev)
@@ -1287,6 +1671,7 @@ def main() -> int:
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
               f"max_abs_err={err:.3e} card={card}")
 
+    rows_out.extend(cde_rows)
     rows_out.append(llm_phases(args, card))
     rows_out.extend(train_phases(args, card))
 

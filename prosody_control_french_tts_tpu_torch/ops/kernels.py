@@ -10,8 +10,8 @@ edited source is rebuilt. Each source compiles to its own object in
 parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
-``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn`` and ``ops.fused_ce``
-take their plain PyTorch versions only for tensors on
+``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn``, ``ops.fused_ce``,
+``ops.frames`` and ``ops.chunk_cumsum`` take their plain PyTorch versions only for tensors on
 the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
@@ -29,7 +29,10 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
-SOURCES = ("pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu")
+SOURCES = (
+    "pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu",
+    "frames.cu", "chunk_cumsum.cu",
+)
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # --fmad=false: torch rounds every multiply and add on its own; a fused
@@ -62,6 +65,10 @@ _SIGNATURES = {
     "fused_ce_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     # h, w, tgt, lse, g, coef, dh, N, D, V, chunk, dtype, stream
     "fused_ce_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    # x, starts, window, out, B, T, F, W, stream
+    "frames_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
+    # x, out, R, C, stream
+    "chunk_cumsum_launch": (_VP, _VP, _I, _I, _VP),
 }
 
 

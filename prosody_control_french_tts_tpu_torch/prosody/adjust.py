@@ -33,6 +33,25 @@ class ProsodySettings:
     threshold_duration_before_slowing_down: float = 1.0
     slow_floor_per_sec: float = 2.0
 
+    @classmethod
+    def from_config(cls, cfg: dict) -> "ProsodySettings":
+        """From a config.yaml dict: its ``prosody_settings`` block, with the
+        reference's defaults for missing keys."""
+        p = cfg.get("prosody_settings", {}) or {}
+        return cls(
+            pitch_semitones=p.get("pitch_semitones", 2.0),
+            pitch_lower_clip_factor=p.get("pitch_lower_clip_factor", 0.7),
+            volume_pct=p.get("volume_pct", 7.0),
+            rate_percent=p.get("rate_percent", 15.0),
+            smoothing_alpha=p.get("smoothing_alpha", 0.4),
+            max_jump_percent=p.get("max_jump_percent", 5.0),
+            end_punctuation_pause_ms=p.get("end_punctuation_pause_ms", 150),
+            baseline_window=p.get("baseline_window", None),
+            inter_syntagme_pause_factor=p.get("inter_syntagme_pause_factor", 1),
+            threshold_duration_before_slowing_down=p.get("threshold_duration_before_slowing_down", 1.0),
+            slow_floor_per_sec=p.get("slow_floor_per_sec", 2.0),
+        )
+
 
 def _median(v: np.ndarray) -> float:
     return float(np.median(v)) if v.size else 0.0

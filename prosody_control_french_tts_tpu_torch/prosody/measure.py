@@ -19,6 +19,7 @@ exactly as the JAX package's to keep the same frames.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -46,6 +47,16 @@ def bucket_length(n: int, minimum: int = 1 << 15) -> int:
     while m - 8192 < n:
         m *= 2
     return m - 8192
+
+
+_SEG_NUM = re.compile(r"segment_ph(\d+)")
+
+
+def segment_sort_key(p: Path):
+    """Numeric order of ``segment_ph<i>`` files (``segment_ph10`` after
+    ``segment_ph2``); other names after them, by name."""
+    m = _SEG_NUM.search(p.stem)
+    return (0, int(m.group(1))) if m else (1, p.stem)
 
 
 @dataclass

@@ -25,7 +25,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert len(mods) >= 25
-    for name in ("ops.vmem_attn", "ops.fused_ce", "models.training"):
+    for name in ("ops.vmem_attn", "ops.fused_ce", "models.training", "ops.frames", "ops.chunk_cumsum", "ops.energy",
+                 "core.pipeline", "core.config", "align.energy", "tts.fake", "ssml.parse", "eval.breaks"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -79,6 +80,40 @@ def test_default_device_raises_without_cuda(tmp_path):
         measure_voice([], tmp_path, tmp_path, ProsodySettings())
     with pytest.raises(RuntimeError, match="CUDA"):
         measure_and_build_ssml([], tmp_path, tmp_path, tmp_path, ProsodySettings(), "v", 1.0)
+
+
+def test_pipeline_entry_points_default_to_cuda(tmp_path):
+    """The voice pipeline, the silence scan and the energy aligner default to
+    CUDA and raise without a card; the frame and cumsum wrappers run their
+    plain versions on CPU tensors only because they lie on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.align.energy import EnergyAligner
+    from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
+    from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
+    from prosody_control_french_tts_tpu_torch.ops import chunk_cumsum, frames
+    from prosody_control_french_tts_tpu_torch.ops.energy import detect_nonsilent, detect_silence, split_on_silence_ranges
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio
+
+    x = np.zeros(3 * 44100, np.float32)
+    cfg = PipelineConfig.from_dict({"tts_backend": "fake"}, tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AudioPipeline("v", cfg)
+    assert not (tmp_path / "Out").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        split_on_silence_ranges(x, 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect_silence(x, 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect_nonsilent(x, 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EnergyAligner().align(Audio(x, 44100), "bonjour")
+    assert AudioPipeline("v", cfg, device="cpu").device.type == "cpu"
+    w = torch.ones(8)
+    assert frames.frames_op(torch.zeros(64), torch.zeros(2, dtype=torch.int32), w).device.type == "cpu"
+    assert chunk_cumsum.chunk_cumsum(torch.zeros((8, 1024))).device.type == "cpu"
 
 
 def test_llm_entry_points_default_to_cuda():
@@ -140,3 +175,19 @@ def test_wrappers_refuse_other_devices():
     kv = torch.empty((2, 16, 128), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attn.decode_attention(q, kv, kv, 3, 2)
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.ops import chunk_cumsum, frames
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        frames.frames_op(torch.empty(64, device="meta"), torch.empty(2, dtype=torch.int32, device="meta"), torch.empty(8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        chunk_cumsum.chunk_cumsum(torch.empty((8, 1024), device="meta"))
+    from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
+    from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
+    from prosody_control_french_tts_tpu_torch.ops.energy import split_on_silence_ranges
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        split_on_silence_ranges(np.zeros(44100, np.float32), 44100, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        AudioPipeline("v", PipelineConfig.from_dict({"tts_backend": "fake"}, "."), device="meta")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from prosody_control_french_tts_tpu_torch.ops import candidates, decode_attn, fused_ce, viterbi, vmem_attn
+from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, decode_attn, frames, fused_ce, viterbi, vmem_attn
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
 
@@ -391,3 +391,85 @@ def test_fused_ce_split_plan_covers_the_vocabulary():
         assert splits >= 1 and per >= 1
         assert (splits - 1) * per < tiles <= splits * per
     assert fused_ce.split_plan(8, 152064)[0] > fused_ce.split_plan(4088, 152064)[0]
+
+
+# ---------------------------------------------------------------------------
+# kernels C/D (frame gather, one CUDA kernel) and E (chunk cumsum)
+# ---------------------------------------------------------------------------
+
+
+def frames_inputs(B, T, W, F, seed, edges=False):
+    """x [B, T] (or [T] for B None), starts in [0, T − W], a Hann window."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(T,) if B is None else (B, T)).astype(np.float32)
+    shape = (F,) if B is None else (B, F)
+    starts = rng.integers(0, T - W + 1, size=shape).astype(np.int32)
+    if edges:
+        e = np.array([0, 1, 1023, 1024, 1025, 2047, 2048, T - W], np.int32)
+        starts[..., : e.size] = e
+    win = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(W) / W)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(starts), torch.from_numpy(win)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["extract_frames", "extract_frames_aligned", "frames_op"])
+@pytest.mark.parametrize("geom", [(None, 8192, 256, 37, False), (None, 50000, 880, 37, True), (2, 8192, 256, 37, False),
+                                  (2, 50000, 880, 41, True), (3, 1000, 1000, 5, False)])
+def test_frames_kernel_equals_plain(cuda, fn, geom):
+    """Kernels C and D share one CUDA kernel: equal to the plain gather bit
+    for bit (one gather and one product per element)."""
+    x, s, w = frames_inputs(*geom[:4], seed=geom[1] + geom[3], edges=geom[4])
+    want = frames.extract_frames_plain(x, s, w)
+    n = frames.launches
+    got = getattr(frames, fn)(x.to(cuda), s.to(cuda), w.to(cuda), w.shape[0])
+    torch.cuda.synchronize()
+    assert frames.launches == n + 1
+    assert got.shape == want.shape and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_frames_kernel_clips_outside_the_contract(cuda):
+    """Starts below 0 or past T − W read the clipped samples, as the plain
+    gather does."""
+    x, _, w = frames_inputs(None, 3000, 512, 1, seed=3)
+    s = torch.tensor([-700, -1, 0, 2488, 2489, 2999, 5000], dtype=torch.int32)
+    got = frames.frames_op(x.to(cuda), s.to(cuda), w.to(cuda))
+    assert torch.equal(got.cpu(), frames.extract_frames_plain(x, s, w))
+
+
+@pytest.mark.gpu
+def test_frames_wrapper_checks(cuda):
+    x, s, w = (t.to(cuda) for t in frames_inputs(None, 4096, 256, 4, seed=1))
+    with pytest.raises(TypeError):
+        frames.frames_op(x, s.long(), w)
+    with pytest.raises(ValueError):
+        frames.frames_op(x, s, torch.ones(frames.MAX_W + 1, device=cuda))
+    with pytest.raises(ValueError):
+        frames.frames_op(x, s.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1024), (16, 4096), (24, 3072), (16, 65536)])
+@pytest.mark.parametrize("square", [False, True])
+def test_chunk_cumsum_kernel_equals_plain(cuda, shape, square):
+    """Kernel E keeps the TPU kernel's shift-add ladder with round-to-nearest
+    adds: equal to the plain version bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(shape[1] + square).normal(size=shape).astype(np.float32))
+    if square:
+        x = x * x
+    want = chunk_cumsum.chunk_cumsum_plain(x)
+    n = chunk_cumsum.launches
+    got = chunk_cumsum.chunk_cumsum(x.to(cuda))
+    torch.cuda.synchronize()
+    assert chunk_cumsum.launches == n + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_chunk_cumsum_wrapper_checks(cuda):
+    with pytest.raises(ValueError):
+        chunk_cumsum.chunk_cumsum(torch.zeros((8, 1000), device=cuda))
+    with pytest.raises(TypeError):
+        chunk_cumsum.chunk_cumsum(torch.zeros((8, 1024), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        chunk_cumsum.chunk_cumsum(torch.zeros((1024, 8), device=cuda).t())
