@@ -61,11 +61,18 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
 12. holds the loss curve of ("vmem", "fused") on the card against ("dot",
     "dense") on the card and on the CPU at a small float32 shape (5e-4);
 13. holds kernels G and H, forward and backward, against their plain versions
-    on tensors captured from those steps and on edge shapes, shows that H
-    allocates less than an [N, V] tensor, and times the four launches, their
-    plain versions and the library calls (``scaled_dot_product_attention``,
-    ``F.cross_entropy`` of the dense logits), forward and backward, as
-    replays of CUDA graphs between CUDA events.
+    on tensors captured from those steps and on edge shapes (G in bfloat16 on
+    its tensor-core kernels and upcast to float32 on its CUDA-core kernels),
+    shows that G's bfloat16 backward gives the same bits twice at the 7B
+    shape and that H allocates less than an [N, V] tensor, and times the four
+    launches, their plain versions and the library calls
+    (``scaled_dot_product_attention``, ``F.cross_entropy`` of the dense
+    logits), forward and backward, as replays of CUDA graphs between CUDA
+    events.
+
+While the kernels build, one more ``nvcc -Xptxas -v`` compile of
+``csrc/vmem_attn.cu`` reports the registers, spills and shared memory of
+kernel G's bfloat16 kernels.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with ten entries, and last ``{"ok": true,
@@ -112,6 +119,11 @@ TOL_H_GRAD_F32 = 1e-5  # dh at D 256: relative to the plain gradient's largest e
 TOL_H_GRAD_WIDE = 1e-4  # dh at full width, float32: sums over 152,064 columns in another order
 TOL_H_GRAD_BF16 = 2e-2
 TOL_PARITY = 5e-4  # loss curves, relative
+# kernel G's bfloat16 times (ms; 7B shape, bench shape) of the CUDA-core
+# design that the tensor-core kernels replaced: PERF.md section 6, H100 80GB
+# HBM3 at 700 W, CUDA-graph replays with L2 cold. Recorded, not measured by
+# this script: printed beside the kernel lines only, never in the kernels line.
+G_PREVIOUS_MS = {"fwd": (0.4496, 0.3040), "bwd": (2.191, 1.404)}
 TRAIN_STEPS = 4  # optimizer steps after the warm one
 
 KERNEL_A = dict(
@@ -167,6 +179,51 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def start_ptxas_report():
+    """Start ``nvcc -Xptxas -v`` on ``csrc/vmem_attn.cu`` (the build's own
+    flags) in the background; :func:`print_ptxas_report` reads it."""
+    from prosody_control_french_tts_tpu_torch.ops import kernels
+
+    out = kernels.BUILD_DIR / "ptxas_vmem_attn.o"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(kernels.CSRC / "vmem_attn.cu"), "-o", str(out)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def print_ptxas_report(proc, lib) -> None:
+    """One line: registers, spills and stack of each bfloat16 kernel of G
+    (from ptxas), and the dynamic shared memory each asks for at launch
+    (``vmem_attn_bf16_smem_bytes``, the size its launcher passes)."""
+    text, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc -Xptxas -v vmem_attn.cu failed:\n{text}")
+    report, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
+        if hit:
+            m = re.search(r"(vmem_attn_(?:fwd|bwd)\w*?)(?:ILi(\d+)E|E)", hit.group(1))
+            name = None
+            if m and ("bf16" in m.group(1) or "reduce" in m.group(1)):
+                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            report[name].update(stack=int(spill.group(1)), spill_stores=int(spill.group(2)), spill_loads=int(spill.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            report[name]["registers"] = int(regs.group(1))
+    for name, row in report.items():
+        hd = re.search(r"<(\d+)>", name)
+        if hd:
+            row["dynamic_smem"] = lib.vmem_attn_bf16_smem_bytes(0 if "fwd" in name else 1 if "dq" in name else 2, int(hd.group(1)))
+    if not report:
+        raise SystemExit(f"no bfloat16 kernel of G in the ptxas report:\n{text[-2000:]}")
+    print("ptxas: kernel G bfloat16 kernels: " + json.dumps(report))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1228,6 +1285,22 @@ def check_kernel_g(q, k, v, dout, label: str) -> tuple[float, float]:
     return out[first][0], out[first][1]
 
 
+def check_g_determinism(q, k, v, dout, label: str) -> None:
+    """Kernel G's backward twice on the same inputs: dq, dk and dv bit-equal."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import vmem_attn
+
+    scale = float(q.shape[-1] ** -0.5)
+    first = attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, scale)
+    second = attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, scale)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first[1:], second[1:])]
+    print(f"check: vmem_attn {label} {str(q.dtype)[6:]} backward twice: dq, dk, dv bit-equal {same}")
+    if not all(same):
+        raise SystemExit(f"kernel G backward ({label}) is not deterministic: {same}")
+
+
 def ce_grad(fn, h, w, tgt, g):
     h = h.detach().clone().requires_grad_(True)
     nll = fn(h, w, tgt)
@@ -1486,6 +1559,7 @@ def train_phases(args, card: str) -> list:
         check_kernel_h(cap["h"].float(), cap["w"].float(), cap["tgt"], cap["g"], label + " upcast to float32", TOL_H_WIDE, TOL_H_GRAD_WIDE)
         free()
         errs[label] = (g_err, h_err)
+    check_g_determinism(cap7["q"], cap7["k"], cap7["v"], cap7["dout"], "7B geometry")
     edge_shape_checks(args.seed)
     h_peak_allocation(cap7["h"], cap7["w"], cap7["tgt"], cap7["g"])
     times = {}
@@ -1497,13 +1571,15 @@ def train_phases(args, card: str) -> list:
     for spec, which, direction in ((KERNEL_G_FWD, 0, "fwd"), (KERNEL_G_BWD, 0, "bwd"), (KERNEL_H_FWD, 1, "fwd"), (KERNEL_H_BWD, 1, "bwd")):
         i = 0 if direction == "fwd" else 1
         t7, tb = times["7B geometry"][which], times["bench geometry"][which]
+        prev = G_PREVIOUS_MS[direction] if which == 0 else (None, None)
         rows.append(dict(spec, launches=counts7[spec["name"]], max_abs_err=errs["7B geometry"][which][i],
                          **{k: t7[direction][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, check="pass", shape=t7["shape"],
                          bench_geometry=dict(tb[direction], shape=tb["shape"], launches=countsb[spec["name"]], max_abs_err=errs["bench geometry"][which][i])))
-        for label, t, n in (("7B geometry", t7, counts7[spec["name"]]), ("bench geometry", tb, countsb[spec["name"]])):
+        for label, t, n, was in (("7B geometry", t7, counts7[spec["name"]], prev[0]), ("bench geometry", tb, countsb[spec["name"]], prev[1])):
             d = t[direction]
+            before = "" if was is None else f" (PERF.md's CUDA-core design: {was} ms, {was / d['ms']:.1f}x this run's time)"
             print(f"kernel {spec['name']} ({label} {json.dumps(t['shape'])}): ms={d['ms']:.4f} launches={n} bound_ms={d['bound_ms']:.5f} "
-                  f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f} card={card}")
+                  f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f}{before} card={card}")
     split7()
     splitb()
     del split7, splitb
@@ -1538,8 +1614,10 @@ def main() -> int:
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    kernels.library()
+    ptxas = start_ptxas_report()
+    lib = kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s ({kernels.build().name})")
+    print_ptxas_report(ptxas, lib)
 
     settings = ProsodySettings()
     voice_name = "fr-FR-DeniseNeural"

@@ -59,8 +59,13 @@ _SIGNATURES = {
     "decode_attn_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I, _VP),
     # q, k, v, o, lse, B, L, H, KVH, hd, scale, dtype, stream
     "vmem_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP),
-    # q, k, v, do, lse, delta, dq, dk, dv, B, L, H, KVH, hd, scale, dtype, stream
-    "vmem_attn_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP),
+    # q, k, v, do, lse, delta, dq, dk, dv, B, L, H, KVH, hd, scale, stream (float32)
+    "vmem_attn_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP),
+    # q, k, v, o, do, lse, delta, plan, n_plan, dk_part, dv_part, dq, dk, dv, B, L, H, KVH, hd, scale, stream
+    "vmem_attn_bwd_bf16_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                  _I, _I, _I, _I, _I, _F, _VP),
+    # kernel (0 forward, 1 dq, 2 dk/dv), hd -> bytes of dynamic shared memory
+    "vmem_attn_bf16_smem_bytes": (_I, _I),
     # h, w, tgt, nll, lse, partials, N, D, V, splits, tiles_per_split, dtype, stream
     "fused_ce_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     # h, w, tgt, lse, g, coef, dh, N, D, V, chunk, dtype, stream

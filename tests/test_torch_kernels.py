@@ -241,14 +241,21 @@ def test_vmem_attn_kernel_matches_plain_float32(cuda, geom):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
+VMEM_GEOMS_BF16 = VMEM_GEOMS + [
+    (8, 512, 14, 2, 64),  # the bench training shape
+    (2, 512, 14, 2, 128),  # hd 128 with group 7
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("geom", VMEM_GEOMS[:3])
+@pytest.mark.parametrize("geom", VMEM_GEOMS_BF16)
 def test_vmem_attn_kernel_matches_plain_bfloat16(cuda, geom):
-    """On the card, bfloat16: forward within 5e-2 (one rounding of an output
-    of magnitude up to ~4 is 1.6e-2); gradients within 3e-2 of the largest
-    element: the kernel rounds ds and p to bfloat16 before its products as the
-    TPU kernel does, autograd of the plain version rounds only p in the
-    forward and every intermediate result instead."""
+    """On the card, bfloat16 (the tensor-core kernels; L 96 ends in a ragged
+    64-row tile): forward within 5e-2 (one rounding of an output of magnitude
+    up to ~4 is 1.6e-2); gradients within 3e-2 of the largest element: the
+    kernel rounds ds and p to bfloat16 before its products as the TPU kernel
+    does, autograd of the plain version rounds only p in the forward and every
+    intermediate result instead."""
     B, L, H, KV, hd = geom
     q, k, v, dout = vmem_attn_inputs(B, L, H, KV, hd, torch.bfloat16, cuda, seed=1)
     scale = hd**-0.5
@@ -260,6 +267,19 @@ def test_vmem_attn_kernel_matches_plain_bfloat16(cuda, geom):
     for g, w in zip(got[1:], want[1:]):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert float((g.float() - w.float()).abs().max()) <= 3e-2 * float(w.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [(2, 512, 28, 4, 128), (2, 96, 8, 1, 64)])
+def test_vmem_attn_bfloat16_backward_is_deterministic(cuda, geom):
+    """Two backward runs on the same inputs give bit-equal dq, dk and dv (no
+    atomics: the group's dk/dv partials are summed in head order)."""
+    B, L, H, KV, hd = geom
+    q, k, v, dout = vmem_attn_inputs(B, L, H, KV, hd, torch.bfloat16, cuda, seed=3)
+    first = _attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, hd**-0.5)
+    second = _attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, hd**-0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
