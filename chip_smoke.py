@@ -64,15 +64,16 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
     on tensors captured from those steps and on edge shapes (G in bfloat16 on
     its tensor-core kernels and upcast to float32 on its CUDA-core kernels),
     shows that G's bfloat16 backward gives the same bits twice at the 7B
-    shape and that H allocates less than an [N, V] tensor, and times the four
+    shape, that H's bfloat16 backward does too and that H allocates less than
+    an [N, V] tensor, and times the four
     launches, their plain versions and the library calls
     (``scaled_dot_product_attention``, ``F.cross_entropy`` of the dense
     logits), forward and backward, as replays of CUDA graphs between CUDA
     events.
 
-While the kernels build, one more ``nvcc -Xptxas -v`` compile of
-``csrc/vmem_attn.cu`` reports the registers, spills and shared memory of
-kernel G's bfloat16 kernels.
+While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
+``csrc/vmem_attn.cu`` and ``csrc/fused_ce.cu`` reports the registers, spills
+and shared memory of kernel G's bfloat16 kernels and of all of kernel H's.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with ten entries, and last ``{"ok": true,
@@ -124,6 +125,11 @@ TOL_PARITY = 5e-4  # loss curves, relative
 # HBM3 at 700 W, CUDA-graph replays with L2 cold. Recorded, not measured by
 # this script: printed beside the kernel lines only, never in the kernels line.
 G_PREVIOUS_MS = {"fwd": (0.4496, 0.3040), "bwd": (2.191, 1.404)}
+# kernel H's bfloat16 times (ms; 7B shape, bench shape) of the wmma design
+# that the wgmma kernels replaced, likewise from PERF.md section 6 (H100 80GB
+# HBM3 at 700 W): printed beside the kernel lines only.
+H_PREVIOUS_MS = {"fwd": (19.90, 2.176), "bwd": (28.18, 3.281)}
+SM_REGISTERS, SM_SMEM = 65536, 233472  # per SM of an H100: registers; shared memory with 1 KB reserved per block
 TRAIN_STEPS = 4  # optimizer steps after the warm one
 
 KERNEL_A = dict(
@@ -181,31 +187,35 @@ def card_line() -> str:
     return out[0].strip()
 
 
+PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu")
+
+
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on ``csrc/vmem_attn.cu`` (the build's own
-    flags) in the background; :func:`print_ptxas_report` reads it."""
+    """Start ``nvcc -Xptxas -v`` on ``csrc/vmem_attn.cu`` and
+    ``csrc/fused_ce.cu`` (the build's own flags) in the background;
+    :func:`print_ptxas_report` reads them."""
     from prosody_control_french_tts_tpu_torch.ops import kernels
 
-    out = kernels.BUILD_DIR / "ptxas_vmem_attn.o"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(kernels.CSRC / "vmem_attn.cu"), "-o", str(out)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in PTXAS_SOURCES:
+        out = kernels.BUILD_DIR / f"ptxas_{name[:-3]}.o"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(kernels.CSRC / name), "-o", str(out)]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
 
 
-def print_ptxas_report(proc, lib) -> None:
-    """One line: registers, spills and stack of each bfloat16 kernel of G
-    (from ptxas), and the dynamic shared memory each asks for at launch
-    (``vmem_attn_bf16_smem_bytes``, the size its launcher passes)."""
-    text, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc -Xptxas -v vmem_attn.cu failed:\n{text}")
+def ptxas_rows(text: str, pattern: str) -> dict:
+    """{kernel name (template argument in <>): registers, spills, stack} of
+    the entry functions whose mangled name matches ``pattern`` (group 1 the
+    name, group 2 an optional integer template argument)."""
     report, name = {}, None
     for line in text.splitlines():
         hit = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
         if hit:
-            m = re.search(r"(vmem_attn_(?:fwd|bwd)\w*?)(?:ILi(\d+)E|E)", hit.group(1))
+            m = re.search(pattern, hit.group(1))
             name = None
-            if m and ("bf16" in m.group(1) or "reduce" in m.group(1)):
+            if m:
                 name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
                 report.setdefault(name, {})
             continue
@@ -217,13 +227,42 @@ def print_ptxas_report(proc, lib) -> None:
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
             report[name]["registers"] = int(regs.group(1))
+    return report
+
+
+def print_ptxas_report(procs, lib) -> None:
+    """Two lines: registers, spills and stack of each bfloat16 kernel of G and
+    of every kernel of H (from ptxas), the dynamic shared memory each asks for
+    at launch (``vmem_attn_bf16_smem_bytes``, ``fused_ce_smem_bytes``: the
+    sizes the launchers pass) and, for H, the blocks that fit an SM by
+    registers and shared memory (``ops/fused_ce.py``'s plans count one)."""
+    texts = {}
+    for name, proc in zip(PTXAS_SOURCES, procs):
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc -Xptxas -v {name} failed:\n{text}")
+        texts[name] = text
+    report = {k: v for k, v in ptxas_rows(texts["vmem_attn.cu"], r"(vmem_attn_(?:fwd|bwd)\w*?)(?:ILi(\d+)E|E)").items()
+              if "bf16" in k or "reduce" in k}
     for name, row in report.items():
         hd = re.search(r"<(\d+)>", name)
         if hd:
             row["dynamic_smem"] = lib.vmem_attn_bf16_smem_bytes(0 if "fwd" in name else 1 if "dq" in name else 2, int(hd.group(1)))
     if not report:
-        raise SystemExit(f"no bfloat16 kernel of G in the ptxas report:\n{text[-2000:]}")
+        raise SystemExit(f"no bfloat16 kernel of G in the ptxas report:\n{texts['vmem_attn.cu'][-2000:]}")
     print("ptxas: kernel G bfloat16 kernels: " + json.dumps(report))
+    report = ptxas_rows(texts["fused_ce.cu"], r"(fused_ce_(?:fwd|combine|coef|dh)\w*?_kernel)(?:ILi(\d+)E)?")
+    for name, row in report.items():
+        bf16 = "bf16" in name
+        cols = re.search(r"<(\d+)>", name)
+        threads = 384 if bf16 else 256
+        row["dynamic_smem"] = 0 if "combine" in name else lib.fused_ce_smem_bytes(1 if bf16 else 0, int(cols.group(1)) if cols else 256)
+        by_regs = SM_REGISTERS // (-(-row["registers"] // 8) * 8 * threads)
+        by_smem = SM_SMEM // (row["dynamic_smem"] + 1024)
+        row["blocks_per_sm"] = min(by_regs, by_smem)
+    if not any("bf16" in k for k in report):
+        raise SystemExit(f"no bfloat16 kernel of H in the ptxas report:\n{texts['fused_ce.cu'][-2000:]}")
+    print("ptxas: kernel H kernels: " + json.dumps(report))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1301,6 +1340,21 @@ def check_g_determinism(q, k, v, dout, label: str) -> None:
         raise SystemExit(f"kernel G backward ({label}) is not deterministic: {same}")
 
 
+def check_h_determinism(h, w, tgt, g, label: str) -> None:
+    """Kernel H's backward twice on the same inputs: nll and dh bit-equal."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce
+
+    first = ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    second = ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    print(f"check: fused_ce {label} {str(h.dtype)[6:]} forward and backward twice: nll, dh bit-equal {same}")
+    if not all(same):
+        raise SystemExit(f"kernel H ({label}) is not deterministic: {same}")
+
+
 def ce_grad(fn, h, w, tgt, g):
     h = h.detach().clone().requires_grad_(True)
     nll = fn(h, w, tgt)
@@ -1333,7 +1387,10 @@ def check_kernel_h(h, w, tgt, g, label: str, tol: float, gtol: float) -> tuple[f
 def edge_shape_checks(seed: int) -> None:
     """Kernels G and H against their plain versions on edge shapes: L 128,
     one KV head, N that fills no tile, a target in the last vocabulary
-    column, logits scaled x12."""
+    column, logits scaled x12; for H's bfloat16 kernels also D 128 (a
+    contraction shorter than the 4-stage ring), N 1, 63, 65 and 2,044 (the
+    warpgroup halves and the 7B row count), V 512 (two vocabulary tiles),
+    in both types."""
     import numpy as np
     import torch
 
@@ -1360,6 +1417,14 @@ def edge_shape_checks(seed: int) -> None:
             if not torch.isfinite(got).all() or bool((diff > TOL_H_EXTREME + TOL_H_EXTREME * want.abs()).any()):
                 raise SystemExit(f"kernel H forward (logits x12): max |err| {float(diff.max())} beyond {TOL_H_EXTREME}")
             print(f"check: fused_ce logits x12 (max |logit| {float((h @ w).abs().max()):.0f}): rows max |err| {float(diff.max()):.3e} (tol {TOL_H_EXTREME})")
+    for N, D, V in ((1, 128, 512), (63, 128, 1024), (65, 256, 2048), (2044, 128, 512), (2044, 128, 65536)):
+        h = mk(N, D) * 0.3
+        w = mk(D, V) * 0.05
+        tgt = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).cuda()
+        tgt[0], tgt[-1] = V - 1, V - 1
+        g = torch.full((N,), 1.0 / N, device="cuda")
+        check_kernel_h(h.bfloat16(), w.bfloat16(), tgt, g, f"edge N {N} D {D} V {V}", TOL_H_WIDE, TOL_H_GRAD_BF16)
+        check_kernel_h(h, w, tgt, g, f"edge N {N} D {D} V {V}", TOL_H_F32, TOL_H_GRAD_F32)
 
 
 def h_peak_allocation(h, w, tgt, g) -> int:
@@ -1560,6 +1625,7 @@ def train_phases(args, card: str) -> list:
         free()
         errs[label] = (g_err, h_err)
     check_g_determinism(cap7["q"], cap7["k"], cap7["v"], cap7["dout"], "7B geometry")
+    check_h_determinism(cap7["h"], cap7["w"], cap7["tgt"], cap7["g"], "7B geometry")
     edge_shape_checks(args.seed)
     h_peak_allocation(cap7["h"], cap7["w"], cap7["tgt"], cap7["g"])
     times = {}
@@ -1571,13 +1637,14 @@ def train_phases(args, card: str) -> list:
     for spec, which, direction in ((KERNEL_G_FWD, 0, "fwd"), (KERNEL_G_BWD, 0, "bwd"), (KERNEL_H_FWD, 1, "fwd"), (KERNEL_H_BWD, 1, "bwd")):
         i = 0 if direction == "fwd" else 1
         t7, tb = times["7B geometry"][which], times["bench geometry"][which]
-        prev = G_PREVIOUS_MS[direction] if which == 0 else (None, None)
+        prev = (G_PREVIOUS_MS if which == 0 else H_PREVIOUS_MS)[direction]
         rows.append(dict(spec, launches=counts7[spec["name"]], max_abs_err=errs["7B geometry"][which][i],
                          **{k: t7[direction][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, check="pass", shape=t7["shape"],
                          bench_geometry=dict(tb[direction], shape=tb["shape"], launches=countsb[spec["name"]], max_abs_err=errs["bench geometry"][which][i])))
         for label, t, n, was in (("7B geometry", t7, counts7[spec["name"]], prev[0]), ("bench geometry", tb, countsb[spec["name"]], prev[1])):
             d = t[direction]
-            before = "" if was is None else f" (PERF.md's CUDA-core design: {was} ms, {was / d['ms']:.1f}x this run's time)"
+            design = "CUDA-core" if which == 0 else "wmma"
+            before = f" (PERF.md's {design} design: {was} ms, {was / d['ms']:.1f}x this run's time)"
             print(f"kernel {spec['name']} ({label} {json.dumps(t['shape'])}): ms={d['ms']:.4f} launches={n} bound_ms={d['bound_ms']:.5f} "
                   f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f}{before} card={card}")
     split7()

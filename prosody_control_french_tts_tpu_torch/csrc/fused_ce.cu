@@ -16,55 +16,87 @@
 //             dh = coef W^T in float32 [N, D]. No dW (the head is frozen).
 //
 // What bounds it on the card: operations (2 N D V forward, 4 N D V backward;
-// W is read a few times, the logits never leave the chip). Design:
-//   forward: the TPU grid (N / 1024, V / 512) sweeps the vocabulary in order
-//     with scratch carried between grid steps. Here N is about 2,000 rows, so
-//     row tiles alone would leave most of the 132 SMs idle: the grid is
-//     (vocabulary split, row tile of 128). A block walks its split's 128-column
-//     tiles, computes each 128 x 128 logits tile in registers (8 x 8 per
-//     thread, operands staged through shared memory as float32), folds it into
-//     the running (m, s, picked) of its rows, and writes one partial triple
-//     per row; a second small kernel combines the splits with the same rescale.
+// W is read a few times, the logits never leave the chip). The TPU grid
+// (N / 1024, V / 512) sweeps the vocabulary in order with scratch carried
+// between grid steps; here N is about 2,000 rows, so row tiles alone would
+// leave most of the 132 SMs idle. The plan, in both types:
+//   forward: grid (vocabulary split, row tile of 128). A block walks its
+//     split's column tiles, folds each logits tile into the running
+//     (m, s, picked) of its rows and writes one partial triple per row; a
+//     second small kernel combines the splits with the same rescale.
+//     ops/fused_ce.py:split_plan sizes the splits so that the grid is a whole
+//     number of waves where the shapes allow it.
 //   backward: a [rows, D] float32 accumulator does not fit a block, and
 //     atomics per vocab tile would be far too many. The vocabulary is walked
-//     in chunks (a few thousand columns): per chunk one kernel recomputes the
-//     logits tiles and writes coef into an [N, chunk] scratch in W's type
+//     in chunks (ops/fused_ce.py:chunk_plan): per chunk one kernel recomputes
+//     the logits tiles and writes coef into an [N, chunk] scratch in W's type
 //     (small enough to stay in the 50 MB L2), and a second kernel adds
-//     coef W_chunk^T into the 128 x 128 tile of dh that each block owns
-//     (float32, read-modify-write by one owner: no atomics, deterministic).
-// All three products share one 128 x 128 output tile per block and one
-// epilogue layout (8 x 8 values per thread). In float32 the tile is a
-// shared-memory loop of depth 16 on the CUDA cores with explicit fmaf. In
-// bfloat16 it runs on the tensor cores through plain warp-level wmma tiles
-// (16 x 16 x 16, float32 accumulators, eight warps of 32 x 64 each, operands
-// staged through shared memory with the next step's global loads in flight),
-// and the accumulators pass through shared memory to reach the same epilogue.
-// wgmma and TMA staging are a later step. Held to a tolerance against the
-// plain PyTorch version, not to bits (sum order and expf differ).
+//     coef W_chunk^T into the tile of dh that each block owns (float32,
+//     read-modify-write by one owner: no atomics, the same bits every run).
+//
+// bfloat16 (the training path): every product is wgmma.mma_async
+// m64nNk16 bf16 x bf16 -> float32 from shared memory, operands staged by TMA
+// (cp.async.bulk.tensor, 128-byte swizzle) through a 4-stage ring with a full
+// and an empty mbarrier per stage. A block is three warpgroups: warpgroup 0
+// is the producer (one thread issues the copies; setmaxnreg gives its
+// registers to the others), warpgroups 1 and 2 each multiply a 64-row half
+// of the 128-row output tile. A stage is 64 deep: A = 128 rows x 128 bytes,
+// B = N columns x 128 bytes. One mainloop serves the three products:
+//   forward and coef: A = h (K-major), B = W[k0:k0+64, c0:c0+256], contiguous
+//     along the output columns (MN-major, wgmma's transpose-B), loaded as four
+//     64 x 64 boxes; output tiles 128 x 256, row tiles the fastest block
+//     index so that the blocks in flight share their W tiles (W then passes
+//     through L2 about once); the coef kernel is persistent, one block per SM
+//     walking the chunk's tiles, so a block's next loads overlap its
+//     epilogue. The epilogues read wgmma's
+//     accumulator layout in place: a row's 256 columns sit in one quad of
+//     lanes, so each thread keeps a running (max, sum) of its own 64 columns
+//     per row in the exp2 domain and the quad merges them once at the end;
+//     nothing goes through shared memory.
+//   dh: A = coef (K-major), B = W[d0:d0+N, v0:v0+w] rows, contiguous in the
+//     contraction (K-major, plain TN); output tiles 128 x 224 where D allows
+//     (the 7B and bench widths: ops/fused_ce.py:dh_cols fills the waves),
+//     128 x 128 elsewhere.
+// The ragged last row tile is zero-filled by TMA on load; the epilogues guard
+// rows >= N. TMA descriptors are encoded per call on the host
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint) and passed
+// by value as __grid_constant__ parameters, so a CUDA-graph capture keeps
+// them. One block per SM (197,696 bytes of shared memory, 168 registers).
+//
+// What bounds the bfloat16 kernels on the card (H100 SXM at 700 W, PERF.md
+// section 6, tools/fused_ce_timing.py): the wgmma mainloop. At the 7B shape
+// the forward runs at about 82 % of the bf16 peak and its mainloop alone at
+// 86 %, the epilogue (while the tensor cores wait) taking the rest; the
+// backward at about 70 %: dh at 75 %, the coef kernel at 70 %, its mainloop
+// slower than the forward's. At D 896 the mainloop of a tile is short and
+// the epilogues weigh more (15 % of the forward, 45 % of the coef kernel).
+//
+// float32 (held to 1e-5 of the plain version; tensor cores would take float32
+// through TF32): 128 x 128 output tiles, a shared-memory loop of depth 16 on
+// the CUDA cores with explicit fmaf, 8 x 8 values per thread.
+//
+// Held to a tolerance against the plain PyTorch version, not to bits (sum
+// order and exp differ).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float kNeg = -1e30f;
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int TM = 128;       // rows of an output tile
 constexpr int TN = 128;       // columns of an output tile
 constexpr int TK = 16;        // contraction depth per staged step
 constexpr int LDS = TM + 4;   // row stride of the staged [TK][128] operands
-constexpr float kNeg = -1e30f;
-// the tensor-core tile (bfloat16)
-constexpr int WK = 32;        // contraction depth per staged step
-constexpr int LDT = WK + 8;   // row stride (elements) of a staged [128][WK] operand
-constexpr int LDB = TN + 8;   // row stride (elements) of the staged K-major [WK][128] operand
-constexpr int LDC = TN + 4;   // row stride (floats) of the accumulator tile in shared memory
 constexpr int kSmemScalar = 2 * TK * LDS * (int)sizeof(float);
-constexpr int kSmemTensor = TM * LDC * (int)sizeof(float);  // the operands alias it
-
-template <typename T>
-constexpr int smem_bytes() { return sizeof(T) == 2 ? kSmemTensor : kSmemScalar; }
 
 // 8 consecutive float32 (16-byte aligned)
 __device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
@@ -72,17 +104,6 @@ __device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // row / column of accumulator index i (0..7) for thread coordinate t (0..15):
@@ -93,12 +114,14 @@ __device__ __forceinline__ int tile_index(int t, int i) { return (i < 4 ? 0 : 64
 // one 128 x 128 tile. A is row-major with the contraction contiguous (lda
 // elements between rows); rows at or beyond rows_valid read as zero.
 // B_KMAJOR: B is [K][cols] row-major (ldb between contraction steps);
-// otherwise B is [cols][K] row-major (ldb between columns). As, Bs: float32
-// [TK][LDS] each.
-template <typename T, bool B_KMAJOR>
-__device__ __forceinline__ void gemm_tile(const T* __restrict__ A, size_t lda, int rows_valid,
-                                          const T* __restrict__ B, size_t ldb, int K,
-                                          float (&acc)[8][8], float* As, float* Bs) {
+// otherwise B is [cols][K] row-major (ldb between columns). smem: float32
+// [TK][LDS] for each operand.
+template <bool B_KMAJOR>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ A, size_t lda, int rows_valid,
+                                          const float* __restrict__ B, size_t ldb, int K,
+                                          float (&acc)[8][8], unsigned char* smem) {
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + TK * LDS;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
@@ -152,130 +175,6 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ A, size_t lda, i
   }
 }
 
-// The same tile on the tensor cores, bfloat16 operands: see gemm_tile for the
-// arguments (K a multiple of WK). Warp w owns rows 32 (w / 2) and columns
-// 64 (w % 2) of the tile as 2 x 4 wmma accumulators; at the end they are
-// written to shared memory (over the staged operands) and read back in
-// gemm_tile's 8 x 8 per-thread layout.
-template <bool B_KMAJOR>
-__device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A, size_t lda,
-                                             int rows_valid, const __nv_bfloat16* __restrict__ B,
-                                             size_t ldb, int K, float (&acc)[8][8],
-                                             unsigned char* smem) {
-  using namespace nvcuda;
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [128][LDT]
-  __nv_bfloat16* Bs = As + TM * LDT;  // K-major [WK][LDB], else [128][LDT]
-  float* Cs = reinterpret_cast<float*>(smem);  // [128][LDC]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(c[m][n], 0.0f);
-  }
-  // each thread stages two 16-byte pieces of either operand per step
-  uint4 ra[2], rb[2];
-  auto load_regs = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece / 4;
-      const int kc = (piece % 4) * 8;
-      ra[i] = r < rows_valid ? *reinterpret_cast<const uint4*>(A + (size_t)r * lda + k0 + kc)
-                             : make_uint4(0u, 0u, 0u, 0u);
-      if (B_KMAJOR) {
-        rb[i] = *reinterpret_cast<const uint4*>(B + (size_t)(k0 + piece / 16) * ldb + (piece % 16) * 8);
-      } else {
-        rb[i] = *reinterpret_cast<const uint4*>(B + (size_t)r * ldb + k0 + kc);
-      }
-    }
-  };
-  load_regs(0);
-  for (int k0 = 0; k0 < K; k0 += WK) {
-    __syncthreads();  // the previous step's reads are done
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece / 4;
-      const int kc = (piece % 4) * 8;
-      *reinterpret_cast<uint4*>(As + r * LDT + kc) = ra[i];
-      if (B_KMAJOR) {
-        *reinterpret_cast<uint4*>(Bs + (piece / 16) * LDB + (piece % 16) * 8) = rb[i];
-      } else {
-        *reinterpret_cast<uint4*>(Bs + r * LDT + kc) = rb[i];
-      }
-    }
-    __syncthreads();
-    if (k0 + WK < K) load_regs(k0 + WK);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < WK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) wmma::load_matrix_sync(a[m], As + (wm * 32 + m * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        if (B_KMAJOR) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Bs + kk * LDB + wn * 64 + n * 16, LDB);
-#pragma unroll
-          for (int m = 0; m < 2; ++m) wmma::mma_sync(c[m][n], a[m], b, c[m][n]);
-        } else {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, Bs + (wn * 64 + n * 16) * LDT + kk, LDT);
-#pragma unroll
-          for (int m = 0; m < 2; ++m) wmma::mma_sync(c[m][n], a[m], b, c[m][n]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the staged operands
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::store_matrix_sync(Cs + (wm * 32 + m * 16) * LDC + wn * 64 + n * 16, c[m][n], LDC,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float* row = Cs + tile_index(ty, i) * LDC;
-    const float4 lo = *reinterpret_cast<const float4*>(row + 4 * tx);
-    const float4 hi = *reinterpret_cast<const float4*>(row + 64 + 4 * tx);
-    acc[i][0] = lo.x; acc[i][1] = lo.y; acc[i][2] = lo.z; acc[i][3] = lo.w;
-    acc[i][4] = hi.x; acc[i][5] = hi.y; acc[i][6] = hi.z; acc[i][7] = hi.w;
-  }
-  // the caller's next tile starts with a __syncthreads() before it stages operands
-}
-
-// one output tile by the route of the operands' type
-__device__ __forceinline__ void tile_product_kmajor(const float* A, size_t lda, int rows_valid, const float* B,
-                                                    size_t ldb, int K, float (&acc)[8][8], unsigned char* smem) {
-  float* As = reinterpret_cast<float*>(smem);
-  gemm_tile<float, true>(A, lda, rows_valid, B, ldb, K, acc, As, As + TK * LDS);
-}
-__device__ __forceinline__ void tile_product_kmajor(const __nv_bfloat16* A, size_t lda, int rows_valid,
-                                                    const __nv_bfloat16* B, size_t ldb, int K,
-                                                    float (&acc)[8][8], unsigned char* smem) {
-  gemm_tile_tc<true>(A, lda, rows_valid, B, ldb, K, acc, smem);
-}
-__device__ __forceinline__ void tile_product_nt(const float* A, size_t lda, int rows_valid, const float* B,
-                                                size_t ldb, int K, float (&acc)[8][8], unsigned char* smem) {
-  float* As = reinterpret_cast<float*>(smem);
-  gemm_tile<float, false>(A, lda, rows_valid, B, ldb, K, acc, As, As + TK * LDS);
-}
-__device__ __forceinline__ void tile_product_nt(const __nv_bfloat16* A, size_t lda, int rows_valid,
-                                                const __nv_bfloat16* B, size_t ldb, int K,
-                                                float (&acc)[8][8], unsigned char* smem) {
-  gemm_tile_tc<false>(A, lda, rows_valid, B, ldb, K, acc, smem);
-}
-
 // reductions over the 16 threads (one half warp) that share a tile row
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -289,9 +188,8 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // forward: grid (splits, row tiles). partials: float32 [3][splits][N] = m, s, picked.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ tgt,
+fused_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w, const int* __restrict__ tgt,
                     float* __restrict__ partials, int N, int D, int V, int tiles_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int split = blockIdx.x;
@@ -316,7 +214,7 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int*
   float acc[8][8];
   for (int t = t_begin; t < t_end; ++t) {
     const int c0 = t * TN;
-    tile_product_kmajor(h + (size_t)r0 * D, D, N - r0, w + c0, V, D, acc, smem);
+    gemm_tile<true>(h + (size_t)r0 * D, D, N - r0, w + c0, V, D, acc, smem);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float tmax = acc[i][0];
@@ -347,7 +245,7 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int*
   }
 }
 
-// forward, second pass: combine the splits' (m, s, picked) per row
+// forward, second pass (both types): combine the splits' (m, s, picked) per row
 __global__ void fused_ce_combine_kernel(const float* __restrict__ partials, float* __restrict__ nll,
                                         float* __restrict__ lse, int N, int splits) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
@@ -367,19 +265,18 @@ __global__ void fused_ce_combine_kernel(const float* __restrict__ partials, floa
 }
 
 // backward, first kernel of a chunk: grid (column tiles of the chunk, row
-// tiles). coef [N][ldc] in W's type, columns v0 .. v0 + chunk width.
-template <typename T>
+// tiles). coef [N][ldc] float32, columns v0 .. v0 + chunk width.
 __global__ void __launch_bounds__(kThreads)
-fused_ce_coef_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ tgt,
+fused_ce_coef_kernel(const float* __restrict__ h, const float* __restrict__ w, const int* __restrict__ tgt,
                      const float* __restrict__ lse, const float* __restrict__ g,
-                     T* __restrict__ coef, int N, int D, int V, int v0, int ldc) {
+                     float* __restrict__ coef, int N, int D, int V, int v0, int ldc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int c0 = v0 + blockIdx.x * TN;
   const int r0 = blockIdx.y * TM;
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   float acc[8][8];
-  tile_product_kmajor(h + (size_t)r0 * D, D, N - r0, w + c0, V, D, acc, smem);
+  gemm_tile<true>(h + (size_t)r0 * D, D, N - r0, w + c0, V, D, acc, smem);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = r0 + tile_index(ty, i);
@@ -396,16 +293,16 @@ fused_ce_coef_kernel(const T* __restrict__ h, const T* __restrict__ w, const int
         const float onehot = c0 + tile_index(tx, j) == target ? 1.0f : 0.0f;
         out[jj] = (expf(acc[i][j] - e) - onehot) * gr;
       }
-      store4(coef + (size_t)row * ldc + (c0 - v0) + tile_index(tx, half * 4), out);
+      *reinterpret_cast<float4*>(coef + (size_t)row * ldc + (c0 - v0) + tile_index(tx, half * 4)) =
+          make_float4(out[0], out[1], out[2], out[3]);
     }
   }
 }
 
 // backward, second kernel of a chunk: grid (D / 128, row tiles).
 // dh[rows, d tile] (+)= coef[rows, chunk] W[d tile, v0 .. v0 + width]^T
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_ce_dh_kernel(const T* __restrict__ coef, const T* __restrict__ w, float* __restrict__ dh, int N,
+fused_ce_dh_kernel(const float* __restrict__ coef, const float* __restrict__ w, float* __restrict__ dh, int N,
                    int D, int V, int v0, int width, int ldc, int first) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int d0 = blockIdx.x * TN;
@@ -413,7 +310,7 @@ fused_ce_dh_kernel(const T* __restrict__ coef, const T* __restrict__ w, float* _
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   float acc[8][8];
-  tile_product_nt(coef + (size_t)r0 * ldc, ldc, N - r0, w + (size_t)d0 * V + v0, V, width, acc, smem);
+  gemm_tile<false>(coef + (size_t)r0 * ldc, ldc, N - r0, w + (size_t)d0 * V + v0, V, width, acc, smem);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = r0 + tile_index(ty, i);
@@ -432,86 +329,693 @@ fused_ce_dh_kernel(const T* __restrict__ coef, const T* __restrict__ w, float* _
   }
 }
 
-template <typename T>
-int fwd_typed(const void* h, const void* w, const int* tgt, float* nll, float* lse, float* partials,
-              int N, int D, int V, int splits, int tiles_per_split, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsTC = 384;  // warpgroup 0 loads, warpgroups 1 and 2 multiply
+constexpr int BM = 128;          // rows of an output tile, 64 per consumer warpgroup
+constexpr int BK = 64;           // contraction per stage: 128 bytes of bf16, one swizzle row
+constexpr int STAGES = 4;
+constexpr int VT = 256;          // vocabulary columns of a forward / coef tile
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int HALF_BYTES = 64 * BK * 2;  // one consumer's 64 rows of A; one 64-column box of B
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__host__ __device__ constexpr int stage_bytes(int cols) { return A_BYTES + cols * BK * 2; }
+// 1024 bytes to align the ring (128-byte swizzle atoms), the ring, its barriers
+__host__ __device__ constexpr int tc_smem_bytes(int cols) { return 1024 + STAGES * stage_bytes(cols) + 2 * STAGES * 8; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// A wait that outlasts kWaitCycles (seconds at any clock) means a copy or an
+// arrival was lost: trap, so that the launch fails instead of hanging.
+constexpr long long kWaitCycles = 20000000000ll;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+// box at (c0 innermost, c1) of a 2-D tensor map into shared memory, completion on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands: rows of
+// 128 bytes, 8-row atoms 1024 bytes apart (stride byte offset; the leading
+// offset is unused). MN-major B: 64-column boxes `lbo` bytes apart (leading
+// byte offset), 8-row groups of the contraction 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator registers while a wgmma is in flight
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B for one m64nNk16 step; accumulate = 0 overwrites d
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n224(float (&d)[112], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, 0, %115;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int COLS, int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[COLS / 2], uint64_t da, uint64_t db, int accumulate) {
+  static_assert(COLS == 256 || COLS == 224 || COLS == 128, "wgmma width");
+  if constexpr (COLS == 256) {
+    wgmma_n256<TRANS_B>(d, da, db, accumulate);
+  } else if constexpr (COLS == 224) {
+    wgmma_n224<TRANS_B>(d, da, db, accumulate);
+  } else {
+    wgmma_n128<TRANS_B>(d, da, db, accumulate);
+  }
+}
+
+// The stage ring: STAGES buffers of [A 128 x 64 | B COLS x 64] bf16, a full
+// barrier (one arrival: the producer's expect_tx, plus the copies' bytes) and
+// an empty barrier (one arrival per consumer warpgroup) per stage.
+struct Ring {
+  uint32_t base;   // stage 0, 1024-byte aligned
+  uint32_t full;   // STAGES barriers of 8 bytes
+  uint32_t empty;  // STAGES barriers of 8 bytes
+  int stage;
+  uint32_t phase;
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+template <int COLS>
+__device__ __forceinline__ Ring ring_setup(unsigned char* smem) {
+  Ring r;
+  r.base = (smem_u32(smem) + 1023u) & ~1023u;
+  r.full = r.base + STAGES * stage_bytes(COLS);
+  r.empty = r.full + STAGES * 8;
+  r.stage = 0;
+  r.phase = 0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// Producer (one thread): KT stages of one output tile. A: rows
+// [a_row, a_row + 128) of tensor map ta, contraction from a_k. B: if B_MN,
+// rows a contraction step each (from b_k) and COLS contiguous columns from
+// b_n, as COLS / 64 boxes of 64 x 64; else COLS rows from b_n with the
+// contraction contiguous (from b_k), one box.
+template <int COLS, bool B_MN>
+__device__ __forceinline__ void produce_tile(Ring& r, const CUtensorMap* ta, int a_k, int a_row, const CUtensorMap* tb,
+                                             int b_k, int b_n, int KT) {
+  for (int kt = 0; kt < KT; ++kt) {
+    const uint32_t full = r.full + 8 * r.stage;
+    mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1u);
+    mbar_expect_tx(full, stage_bytes(COLS));
+    const uint32_t a = r.base + r.stage * stage_bytes(COLS);
+    tma_load_2d(a, ta, a_k + kt * BK, a_row, full);
+    if (B_MN) {
+#pragma unroll
+      for (int q = 0; q < COLS / 64; ++q) tma_load_2d(a + A_BYTES + q * HALF_BYTES, tb, b_n + 64 * q, b_k + kt * BK, full);
+    } else {
+      tma_load_2d(a + A_BYTES, tb, b_k + kt * BK, b_n, full);
+    }
+    r.advance();
+  }
+}
+
+// Consumer warpgroup `half` (rows 64 half .. 64 half + 63 of the tile): acc =
+// A B over KT stages. One wgmma group stays in flight: a stage is released
+// once the group after it has been issued and its own has completed.
+template <int COLS, int TRANS_B>
+__device__ __forceinline__ void consume_tile(Ring& r, float (&acc)[COLS / 2], int half, int KT) {
+  const bool signals = threadIdx.x % 128 == 0;
+  int prev = -1;
+  pin(acc);
+  for (int kt = 0; kt < KT; ++kt) {
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+    const uint32_t a = r.base + r.stage * stage_bytes(COLS) + half * HALF_BYTES;
+    const uint32_t b = r.base + r.stage * stage_bytes(COLS) + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k) {
+      const uint64_t da = smem_desc(a + 32 * k, 16, 1024);
+      const uint64_t db = TRANS_B ? smem_desc(b + k * 16 * 128, HALF_BYTES, 1024) : smem_desc(b + 32 * k, 16, 1024);
+      wgmma<COLS, TRANS_B>(acc, da, db, (kt | k) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (prev >= 0 && signals) mbar_arrive(r.empty + 8 * prev);
+    prev = r.stage;
+    r.advance();
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  if (signals) mbar_arrive(r.empty + 8 * prev);
+}
+
+// A consumer thread's place in wgmma's accumulator layout: acc[4 j + 2 h + e]
+// is row row0 + 8 h, column 8 j + colq + e of its warpgroup's 64-row half.
+struct Slot {
+  int row0;
+  int colq;
+  __device__ __forceinline__ Slot(int r0, int half) {
+    const int t = threadIdx.x % 128;
+    row0 = r0 + 64 * half + 16 * (t / 32) + (t % 32) / 4;
+    colq = 2 * (t % 4);
+  }
+};
+
+// forward: grid (row tiles, splits), 256-column tiles: the blocks of one
+// split are neighbours, so a wave's blocks read each W tile together and W
+// passes through L2 about once. partials: float32 [3][splits][N] = m, s,
+// picked (m in natural-log units).
+__global__ void __launch_bounds__(kThreadsTC, 1)
+fused_ce_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
+                         const int* __restrict__ tgt, float* __restrict__ partials, int N, int D, int V,
+                         int tiles_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];  // the ring aligns itself to 1024
+  Ring ring = ring_setup<VT>(smem);
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int r0 = blockIdx.x * BM;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(V / VT, t_begin + tiles_per_split);
+  const int KT = D / BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int t = t_begin; t < t_end; ++t) produce_tile<VT, true>(ring, &tm_h, 0, r0, &tm_w, 0, t * VT, KT);
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int half = wg - 1;
+  const Slot at(r0, half);
+  float m[2] = {kNeg, kNeg}, s[2] = {0.0f, 0.0f}, picked[2] = {0.0f, 0.0f};
+  int target[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = at.row0 + 8 * h;
+    target[h] = row < N ? tgt[row] : -1;
+  }
+  float acc[VT / 2];
+#pragma unroll
+  for (int i = 0; i < VT / 2; ++i) acc[i] = 0.0f;
+  for (int t = t_begin; t < t_end; ++t) {
+    consume_tile<VT, 1>(ring, acc, half, KT);
+    const int c0 = t * VT;
+    // each thread folds its own 64 columns of each row (exp2 domain); the
+    // quad merges at the end
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < VT / 8; ++j) mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+      const float m_new = fmaxf(m[h], mx * kLog2e);
+      float part = 0.0f;
+#pragma unroll
+      for (int j = 0; j < VT / 8; ++j) {
+        part += exp2f(fmaf(acc[4 * j + 2 * h], kLog2e, -m_new));
+        part += exp2f(fmaf(acc[4 * j + 2 * h + 1], kLog2e, -m_new));
+      }
+      s[h] = s[h] * exp2f(m[h] - m_new) + part;
+      m[h] = m_new;
+      const int rel = target[h] - c0 - at.colq;
+      if (rel >= 0 && rel < VT && (rel & 7) < 2) {
+#pragma unroll
+        for (int j = 0; j < VT / 8; ++j) {
+          if (j == (rel >> 3)) picked[h] += (rel & 1) ? acc[4 * j + 2 * h + 1] : acc[4 * j + 2 * h];
+        }
+      }
+    }
+  }
+  const bool writer = threadIdx.x % 4 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mq = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+    float sq = s[h] * exp2f(m[h] - mq);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    float p = picked[h];
+    p += __shfl_xor_sync(0xffffffffu, p, 1);
+    p += __shfl_xor_sync(0xffffffffu, p, 2);
+    const int row = at.row0 + 8 * h;
+    if (writer && row < N) {
+      partials[((size_t)0 * splits + split) * N + row] = mq * kLn2;
+      partials[((size_t)1 * splits + split) * N + row] = sq;
+      partials[((size_t)2 * splits + split) * N + row] = p;
+    }
+  }
+}
+
+// backward, first kernel of a chunk: persistent, one block per SM walks the
+// chunk's tiles i = blockIdx.x, + gridDim.x, ... with the row tile fastest
+// (row i % row_tiles, 256-column tile i / row_tiles), so that the producer
+// loads a block's next tile while its consumers finish the last one, and the
+// blocks of a round share their W tiles. coef [N][ldc] bf16, columns
+// v0 .. v0 + width.
+__global__ void __launch_bounds__(kThreadsTC, 1)
+fused_ce_coef_bf16_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
+                          const int* __restrict__ tgt, const float* __restrict__ lse, const float* __restrict__ g,
+                          __nv_bfloat16* __restrict__ coef, int N, int D, int v0, int width, int ldc) {
+  extern __shared__ __align__(128) unsigned char smem[];  // the ring aligns itself to 1024
+  Ring ring = ring_setup<VT>(smem);
+  const int row_tiles = (N + BM - 1) / BM;
+  const int tiles = row_tiles * (width / VT);
+  const int KT = D / BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+        produce_tile<VT, true>(ring, &tm_h, 0, (i % row_tiles) * BM, &tm_w, 0, v0 + (i / row_tiles) * VT, KT);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int half = wg - 1;
+  float acc[VT / 2];
+#pragma unroll
+  for (int i = 0; i < VT / 2; ++i) acc[i] = 0.0f;
+  for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+    const int c0 = v0 + (i / row_tiles) * VT;
+    const Slot at((i % row_tiles) * BM, half);
+    consume_tile<VT, 1>(ring, acc, half, KT);
+    // coef = (p - onehot) g straight from the accumulators, rounded to bf16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = at.row0 + 8 * h;
+      if (row >= N) continue;
+      const float e2 = lse[row] * kLog2e;
+      const float gr = g[row];
+      const int target = tgt[row];
+      __nv_bfloat16* out = coef + (size_t)row * ldc + (c0 - v0) + at.colq;
+#pragma unroll
+      for (int j = 0; j < VT / 8; ++j) {
+        const int col = c0 + 8 * j + at.colq;
+        float p0 = exp2f(fmaf(acc[4 * j + 2 * h], kLog2e, -e2));
+        float p1 = exp2f(fmaf(acc[4 * j + 2 * h + 1], kLog2e, -e2));
+        if (col == target) p0 -= 1.0f;
+        if (col + 1 == target) p1 -= 1.0f;
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(p0 * gr, p1 * gr);
+      }
+    }
+  }
+}
+
+// backward, second kernel of a chunk: grid (row tiles, D / COLS): a wave
+// covers every row tile of a few dh column tiles, so each slice of the W
+// chunk is read by all row tiles together and the coef scratch (in L2 from
+// the first kernel) is what is read again.
+// dh[rows, d0 .. d0 + COLS) (+)= coef[rows, chunk] W[d0 .. d0 + COLS, v0 .. v0 + width]^T
+template <int COLS>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+fused_ce_dh_bf16_kernel(const __grid_constant__ CUtensorMap tm_coef, const __grid_constant__ CUtensorMap tm_wk,
+                        float* __restrict__ dh, int N, int D, int v0, int width, int first) {
+  extern __shared__ __align__(128) unsigned char smem[];  // the ring aligns itself to 1024
+  Ring ring = ring_setup<COLS>(smem);
+  const int d0 = blockIdx.y * COLS;
+  const int r0 = blockIdx.x * BM;
+  const int KT = width / BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) produce_tile<COLS, false>(ring, &tm_coef, 0, r0, &tm_wk, v0, d0, KT);
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int half = wg - 1;
+  const Slot at(r0, half);
+  float acc[COLS / 2];
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.0f;
+  consume_tile<COLS, 0>(ring, acc, half, KT);
+  // dh (+)= acc: the tile's one owner writes it on the first chunk, adds after
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = at.row0 + 8 * h;
+    if (row >= N) continue;
+    float* out = dh + (size_t)row * D + d0 + at.colq;
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j) {
+      float2 r = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (!first) {
+        const float2 old = *reinterpret_cast<const float2*>(out + 8 * j);
+        r.x += old.x;
+        r.y += old.y;
+      }
+      *reinterpret_cast<float2*>(out + 8 * j) = r;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, looked up at run time so that
+// the library links without -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 view [outer][inner], rows row_bytes apart, read in boxes of
+// box_outer x box_inner with the 128-byte swizzle; out-of-bounds rows read as
+// zero. Returns 0 or a cudaError.
+int tensor_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
+               uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, step,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int fwd_f32(const float* h, const float* w, const int* tgt, float* nll, float* lse, float* partials, int N, int D,
+            int V, int splits, int tiles_per_split, cudaStream_t stream) {
   const int row_tiles = (N + TM - 1) / TM;
-  cudaError_t rc = cudaFuncSetAttribute(fused_ce_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        smem_bytes<T>());
+  cudaError_t rc = cudaFuncSetAttribute(fused_ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemScalar);
   if (rc != cudaSuccess) return (int)rc;
-  fused_ce_fwd_kernel<T><<<dim3(splits, row_tiles), kThreads, smem_bytes<T>(), stream>>>(
-      (const T*)h, (const T*)w, tgt, partials, N, D, V, tiles_per_split);
+  fused_ce_fwd_kernel<<<dim3(splits, row_tiles), kThreads, kSmemScalar, stream>>>(h, w, tgt, partials, N, D, V,
+                                                                                 tiles_per_split);
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return (int)rc;
   fused_ce_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(partials, nll, lse, N, splits);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int bwd_typed(const void* h, const void* w, const int* tgt, const float* lse, const float* g,
-              void* coef, float* dh, int N, int D, int V, int chunk, cudaStream_t stream) {
-  const int row_tiles = (N + TM - 1) / TM;
-  cudaError_t rc = cudaFuncSetAttribute(fused_ce_coef_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        smem_bytes<T>());
+int fwd_bf16(const void* h, const void* w, const int* tgt, float* nll, float* lse, float* partials, int N, int D,
+             int V, int splits, int tiles_per_split, cudaStream_t stream) {
+  CUtensorMap tm_h, tm_w;
+  int err = tensor_map(&tm_h, h, D, N, (uint64_t)D * 2, BK, BM);
+  if (err == 0) err = tensor_map(&tm_w, w, V, D, (uint64_t)V * 2, 64, BK);
+  if (err != 0) return err;
+  const int bytes = tc_smem_bytes(VT);
+  cudaError_t rc = cudaFuncSetAttribute(fused_ce_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return (int)rc;
-  rc = cudaFuncSetAttribute(fused_ce_dh_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
+  fused_ce_fwd_bf16_kernel<<<dim3((N + BM - 1) / BM, splits), kThreadsTC, bytes, stream>>>(tm_h, tm_w, tgt, partials,
+                                                                                         N, D, V, tiles_per_split);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  fused_ce_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(partials, nll, lse, N, splits);
+  return (int)cudaGetLastError();
+}
+
+int bwd_f32(const float* h, const float* w, const int* tgt, const float* lse, const float* g, float* coef, float* dh,
+            int N, int D, int V, int chunk, cudaStream_t stream) {
+  const int row_tiles = (N + TM - 1) / TM;
+  cudaError_t rc = cudaFuncSetAttribute(fused_ce_coef_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemScalar);
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaFuncSetAttribute(fused_ce_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemScalar);
   if (rc != cudaSuccess) return (int)rc;
   for (int v0 = 0; v0 < V; v0 += chunk) {
     const int width = min(chunk, V - v0);
-    fused_ce_coef_kernel<T><<<dim3(width / TN, row_tiles), kThreads, smem_bytes<T>(), stream>>>(
-        (const T*)h, (const T*)w, tgt, lse, g, (T*)coef, N, D, V, v0, chunk);
+    fused_ce_coef_kernel<<<dim3(width / TN, row_tiles), kThreads, kSmemScalar, stream>>>(h, w, tgt, lse, g, coef, N,
+                                                                                        D, V, v0, chunk);
     rc = cudaGetLastError();
     if (rc != cudaSuccess) return (int)rc;
-    fused_ce_dh_kernel<T><<<dim3(D / TN, row_tiles), kThreads, smem_bytes<T>(), stream>>>(
-        (const T*)coef, (const T*)w, dh, N, D, V, v0, width, chunk, v0 == 0 ? 1 : 0);
+    fused_ce_dh_kernel<<<dim3(D / TN, row_tiles), kThreads, kSmemScalar, stream>>>(coef, w, dh, N, D, V, v0, width,
+                                                                                  chunk, v0 == 0 ? 1 : 0);
     rc = cudaGetLastError();
     if (rc != cudaSuccess) return (int)rc;
   }
   return (int)cudaSuccess;
 }
 
-bool shape_ok(int N, int D, int V) {
-  return N > 0 && N <= 65535 * TM && D > 0 && D % TN == 0 && V > 0 && V % TN == 0;
+template <int COLS>
+int dh_bf16(const CUtensorMap& tm_coef, const CUtensorMap& tm_wk, float* dh, int N, int D, int v0, int width, int first,
+            cudaStream_t stream) {
+  const int bytes = tc_smem_bytes(COLS);
+  cudaError_t rc = cudaFuncSetAttribute(fused_ce_dh_bf16_kernel<COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  fused_ce_dh_bf16_kernel<COLS><<<dim3((N + BM - 1) / BM, D / COLS), kThreadsTC, bytes, stream>>>(tm_coef, tm_wk, dh, N,
+                                                                                                 D, v0, width, first);
+  return (int)cudaGetLastError();
 }
+
+int bwd_bf16(const void* h, const void* w, const int* tgt, const float* lse, const float* g, __nv_bfloat16* coef,
+             float* dh, int N, int D, int V, int chunk, int dh_cols, cudaStream_t stream) {
+  CUtensorMap tm_h, tm_w, tm_coef, tm_wk;
+  int err = tensor_map(&tm_h, h, D, N, (uint64_t)D * 2, BK, BM);
+  if (err == 0) err = tensor_map(&tm_w, w, V, D, (uint64_t)V * 2, 64, BK);
+  if (err == 0) err = tensor_map(&tm_coef, coef, chunk, N, (uint64_t)chunk * 2, BK, BM);
+  if (err == 0) err = tensor_map(&tm_wk, w, V, D, (uint64_t)V * 2, BK, dh_cols);
+  if (err != 0) return err;
+  const int bytes = tc_smem_bytes(VT);
+  cudaError_t rc = cudaFuncSetAttribute(fused_ce_coef_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  int device = 0, sms = 0;
+  rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc != cudaSuccess) return (int)rc;
+  for (int v0 = 0; v0 < V; v0 += chunk) {
+    const int width = min(chunk, V - v0);
+    const int tiles = (N + BM - 1) / BM * (width / VT);
+    fused_ce_coef_bf16_kernel<<<min(tiles, sms), kThreadsTC, bytes, stream>>>(tm_h, tm_w, tgt, lse, g, coef, N, D, v0,
+                                                                              width, chunk);
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return (int)rc;
+    const int first = v0 == 0 ? 1 : 0;
+    err = dh_cols == 224 ? dh_bf16<224>(tm_coef, tm_wk, dh, N, D, v0, width, first, stream)
+                         : dh_bf16<128>(tm_coef, tm_wk, dh, N, D, v0, width, first, stream);
+    if (err != 0) return err;
+  }
+  return (int)cudaSuccess;
+}
+
+bool rows_ok(int N) { return N > 0 && N <= 65535 * TM; }
 
 }  // namespace
 
+// Dynamic shared memory a launcher passes: dtype 0 = float32 (any kernel),
+// 1 = bfloat16 with `cols` output columns per tile (256: forward and coef;
+// 224 or 128: dh). -1 for a width with no kernel.
+extern "C" int fused_ce_smem_bytes(int dtype, int cols) {
+  if (dtype == 0) return kSmemScalar;
+  if (dtype == 1 && (cols == 256 || cols == 224 || cols == 128)) return tc_smem_bytes(cols);
+  return -1;
+}
+
 // h [N, D], w [D, V] (dtype 0 = float32, 1 = bfloat16), tgt int32 [N];
 // nll, lse float32 [N]; partials float32 scratch [3, splits, N]; the
-// vocabulary's V / 128 column tiles are dealt tiles_per_split to a split.
+// vocabulary's column tiles (128 wide in float32, 256 in bfloat16) are dealt
+// tiles_per_split to a split.
 extern "C" int fused_ce_fwd_launch(const void* h, const void* w, const void* tgt, void* nll, void* lse,
-                                   void* partials, int N, int D, int V, int splits,
-                                   int tiles_per_split, int dtype, void* stream) {
-  if (!shape_ok(N, D, V) || splits < 1 || splits > 65535 || tiles_per_split < 1 ||
-      (long long)splits * tiles_per_split < V / TN) {
+                                   void* partials, int N, int D, int V, int splits, int tiles_per_split, int dtype,
+                                   void* stream) {
+  const int tile = dtype == 1 ? VT : TN;
+  if (!rows_ok(N) || D <= 0 || D % 128 != 0 || V <= 0 || V % tile != 0 || splits < 1 || splits > 65535 ||
+      tiles_per_split < 1 || (long long)splits * tiles_per_split < V / tile) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    return fwd_typed<float>(h, w, (const int*)tgt, (float*)nll, (float*)lse, (float*)partials, N, D, V,
-                            splits, tiles_per_split, s);
+    return fwd_f32((const float*)h, (const float*)w, (const int*)tgt, (float*)nll, (float*)lse, (float*)partials, N,
+                   D, V, splits, tiles_per_split, s);
   }
   if (dtype == 1) {
-    return fwd_typed<__nv_bfloat16>(h, w, (const int*)tgt, (float*)nll, (float*)lse, (float*)partials,
-                                    N, D, V, splits, tiles_per_split, s);
+    return fwd_bf16(h, w, (const int*)tgt, (float*)nll, (float*)lse, (float*)partials, N, D, V, splits,
+                    tiles_per_split, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // lse from the forward, g float32 [N]; coef: scratch [N, chunk] in w's type
-// (chunk a multiple of 128); dh float32 [N, D], fully written.
-extern "C" int fused_ce_bwd_launch(const void* h, const void* w, const void* tgt, const void* lse,
-                                   const void* g, void* coef, void* dh, int N, int D, int V, int chunk,
-                                   int dtype, void* stream) {
-  if (!shape_ok(N, D, V) || chunk < TN || chunk % TN != 0) return (int)cudaErrorInvalidValue;
+// (chunk a multiple of the column tile: 128 in float32, 256 in bfloat16); dh
+// float32 [N, D], fully written, in tiles of dh_cols columns (128 in float32;
+// 224 or 128 dividing D in bfloat16).
+extern "C" int fused_ce_bwd_launch(const void* h, const void* w, const void* tgt, const void* lse, const void* g,
+                                   void* coef, void* dh, int N, int D, int V, int chunk, int dh_cols, int dtype,
+                                   void* stream) {
+  const int tile = dtype == 1 ? VT : TN;
+  const bool cols_ok = dtype == 1 ? (dh_cols == 224 || dh_cols == 128) : dh_cols == TN;
+  if (!rows_ok(N) || D <= 0 || D % 128 != 0 || V <= 0 || V % tile != 0 || chunk < tile || chunk % tile != 0 ||
+      !cols_ok || D % dh_cols != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    return bwd_typed<float>(h, w, (const int*)tgt, (const float*)lse, (const float*)g, coef,
-                            (float*)dh, N, D, V, chunk, s);
+    return bwd_f32((const float*)h, (const float*)w, (const int*)tgt, (const float*)lse, (const float*)g,
+                   (float*)coef, (float*)dh, N, D, V, chunk, s);
   }
   if (dtype == 1) {
-    return bwd_typed<__nv_bfloat16>(h, w, (const int*)tgt, (const float*)lse, (const float*)g, coef,
-                                    (float*)dh, N, D, V, chunk, s);
+    return bwd_bf16(h, w, (const int*)tgt, (const float*)lse, (const float*)g, (__nv_bfloat16*)coef, (float*)dh, N,
+                    D, V, chunk, dh_cols, s);
   }
   return (int)cudaErrorInvalidValue;
 }

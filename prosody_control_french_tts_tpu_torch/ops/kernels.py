@@ -68,8 +68,10 @@ _SIGNATURES = {
     "vmem_attn_bf16_smem_bytes": (_I, _I),
     # h, w, tgt, nll, lse, partials, N, D, V, splits, tiles_per_split, dtype, stream
     "fused_ce_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
-    # h, w, tgt, lse, g, coef, dh, N, D, V, chunk, dtype, stream
-    "fused_ce_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    # h, w, tgt, lse, g, coef, dh, N, D, V, chunk, dh_cols, dtype, stream
+    "fused_ce_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
+    # dtype (0 float32, 1 bfloat16), output columns of a tile -> bytes of dynamic shared memory
+    "fused_ce_smem_bytes": (_I, _I),
     # x, starts, window, out, B, T, F, W, stream
     "frames_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
     # x, out, R, C, stream

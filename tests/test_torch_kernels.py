@@ -403,14 +403,72 @@ def test_fused_ce_wrapper_counts_and_checks(cuda):
 
 
 def test_fused_ce_split_plan_covers_the_vocabulary():
-    """The forward grid's plan: every column tile belongs to one split, no
-    split is empty, and small row counts get more splits."""
-    for n, v in ((2044, 152064), (4088, 32768), (8, 512), (300, 1024)):
-        splits, per = fused_ce.split_plan(n, v)
-        tiles = v // fused_ce.TILE
-        assert splits >= 1 and per >= 1
-        assert (splits - 1) * per < tiles <= splits * per
-    assert fused_ce.split_plan(8, 152064)[0] > fused_ce.split_plan(4088, 152064)[0]
+    """The forward grid's plan, for both routes (bfloat16: 256-column tiles;
+    float32: 128-column tiles; one block per SM): every column tile belongs
+    to one split, no split is empty, and small row counts get more splits."""
+    for tile, slots in ((fused_ce.TILE_BF16, 132), (fused_ce.TILE, 132)):
+        for n, v in ((2044, 152064), (4088, 32768), (8, 512), (300, 1024)):
+            splits, per = fused_ce.split_plan(n, v, tile, slots)
+            tiles = v // tile
+            assert splits >= 1 and per >= 1
+            assert (splits - 1) * per < tiles <= splits * per
+        assert fused_ce.split_plan(8, 152064, tile, slots)[0] > fused_ce.split_plan(4088, 152064, tile, slots)[0]
+
+
+FUSED_CE_EDGES = [
+    (1, 128, 512),  # one row; D 128: two 64-deep stages, fewer than the ring's four
+    (63, 128, 1024),  # a partial first warpgroup
+    (65, 256, 2048),  # one row into the second warpgroup
+    (2044, 128, 512),  # the 7B row count (last row tile 124); two vocabulary tiles
+    (2044, 128, 65536),  # eight tiles a block at D 128: the ring wraps within a block's walk
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, tol, gtol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 2e-2)])
+@pytest.mark.parametrize("shape", FUSED_CE_EDGES)
+def test_fused_ce_kernel_edges(cuda, shape, dtype, tol, gtol):
+    """The edges of the tiles, the ring and the plans, both types, with
+    targets in the first and last vocabulary columns: rows within tol, dh
+    within gtol of its largest element (the tolerances of the tests above)."""
+    N, D, V = shape
+    h, w, tgt, g = fused_ce_inputs(N, D, V, dtype, cuda, seed=4)
+    g[0] = 1.0 / N  # row 0 carries a gradient (alone at N 1, where g / g.sum() can be 0 / 0)
+    tgt[0] = V - 1
+    if N > 1:
+        tgt[1] = 0
+        tgt[-1] = V - 1
+    got, got_dh = _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    torch.cuda.synchronize()
+    want, want_dh = _ce_grad(fused_ce.linear_ce_rows_plain, h, w, tgt, g)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert got_dh.shape == (N, D) and got_dh.dtype == dtype
+    assert float((got_dh.float() - want_dh.float()).abs().max()) <= gtol * float(want_dh.float().abs().max())
+
+
+def _h_7b_width(cuda, seed):
+    """D 3,584 and the 7B row count over two backward chunks of 8,448."""
+    return fused_ce_inputs(2044, 3584, 16896, torch.bfloat16, cuda, seed=seed)
+
+
+@pytest.mark.gpu
+def test_fused_ce_bfloat16_matches_plain_at_7b_width(cuda):
+    h, w, tgt, g = _h_7b_width(cuda, 5)
+    tgt[0] = w.shape[1] - 1
+    got, got_dh = _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    want, want_dh = _ce_grad(fused_ce.linear_ce_rows_plain, h, w, tgt, g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert float((got_dh.float() - want_dh.float()).abs().max()) <= 2e-2 * float(want_dh.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_fused_ce_bfloat16_backward_is_deterministic(cuda):
+    """No atomics: two backwards on the same inputs give the same bits."""
+    h, w, tgt, g = _h_7b_width(cuda, 6)
+    first = _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    second = _ce_grad(fused_ce.linear_ce_rows, h, w, tgt, g)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 # ---------------------------------------------------------------------------
