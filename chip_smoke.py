@@ -39,14 +39,17 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
    replays;
 6. holds kernels A and B against their plain versions on the measure path's
    own tensors (A within 1e-6, B exactly);
-7. times A, B, their plain versions and ``torch.topk`` (CUDA events);
+7. times A, B, their plain versions and ``torch.topk`` (CUDA events), and
+   gives B's chain floor: the least time its dependent chains can take,
+   from a shuffle's and a float add's latency measured on the card;
 8. serves the LLM at the full width of ``LLMConfig.qwen25_7b()`` in
    bfloat16, weights made on the card from the seed: ``fuse_decode_params``
    then ``greedy_generate_fused`` (16 prompts of 64 tokens, 128 new tokens),
    with kernel F's launch count set to 0 just before and read just after
    (layers × 127), cold and warm, and checks the tokens; holds F against its
-   plain version (2e-2 in bfloat16, 2e-5 in float32) and times it by its
-   kernels' durations under torch.profiler (the host's launch overhead
+   plain version (2e-2 in bfloat16, 2e-5 in float32), shows that it ignores
+   rows beyond pos and gives the same bits over two calls, and times it by
+   its kernels' durations under torch.profiler (the host's launch overhead
    exceeds the kernel's time);
 9. serves the JAX bench's geometry (12 layers, dim 896; 64 prompts of 64
    tokens, 256 new) in bfloat16 and with the int8b weight stream, and holds
@@ -72,8 +75,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
     events.
 
 While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
-``csrc/vmem_attn.cu`` and ``csrc/fused_ce.cu`` reports the registers, spills
-and shared memory of kernel G's bfloat16 kernels and of all of kernel H's.
+``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu`` and
+``csrc/viterbi.cu`` reports the registers, spills and shared memory of kernel
+G's bfloat16 kernels and of all of kernels H's, F's and B's.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with ten entries, and last ``{"ok": true,
@@ -129,6 +133,14 @@ G_PREVIOUS_MS = {"fwd": (0.4496, 0.3040), "bwd": (2.191, 1.404)}
 # that the wgmma kernels replaced, likewise from PERF.md section 6 (H100 80GB
 # HBM3 at 700 W): printed beside the kernel lines only.
 H_PREVIOUS_MS = {"fwd": (19.90, 2.176), "bwd": (28.18, 3.281)}
+# kernel F's times (ms; 7B geometry, bench geometry) of the design with one
+# block per (b, KV head) that the clustered kernel replaced, and kernel B's (ms,
+# measure voice) of the one-warp design: PERF.md section 6, H100 80GB HBM3 at
+# 700 W. Recorded, not measured by this script: printed beside the kernel lines only.
+F_PREVIOUS_MS = (0.0213, 0.0208)
+B_PREVIOUS_MS = 5.015
+# kernel F's serving launches for the ptxas report: dtype code, hd, B, KV heads, S
+F_SERVING_LAUNCHES = {"7b": (1, 128, 16, 4, 192), "bench": (1, 64, 64, 2, 320)}
 SM_REGISTERS, SM_SMEM = 65536, 233472  # per SM of an H100: registers; shared memory with 1 KB reserved per block
 TRAIN_STEPS = 4  # optimizer steps after the warm one
 
@@ -187,13 +199,13 @@ def card_line() -> str:
     return out[0].strip()
 
 
-PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu")
+PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu")
 
 
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on ``csrc/vmem_attn.cu`` and
-    ``csrc/fused_ce.cu`` (the build's own flags) in the background;
-    :func:`print_ptxas_report` reads them."""
+    """Start ``nvcc -Xptxas -v`` on ``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``,
+    ``csrc/decode_attn.cu`` and ``csrc/viterbi.cu`` (the build's own flags) in
+    the background; :func:`print_ptxas_report` reads them."""
     from prosody_control_french_tts_tpu_torch.ops import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -206,9 +218,9 @@ def start_ptxas_report():
 
 
 def ptxas_rows(text: str, pattern: str) -> dict:
-    """{kernel name (template argument in <>): registers, spills, stack} of
+    """{kernel name (template arguments in <>): registers, spills, stack} of
     the entry functions whose mangled name matches ``pattern`` (group 1 the
-    name, group 2 an optional integer template argument)."""
+    name, later groups optional template arguments)."""
     report, name = {}, None
     for line in text.splitlines():
         hit = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
@@ -216,7 +228,8 @@ def ptxas_rows(text: str, pattern: str) -> dict:
             m = re.search(pattern, hit.group(1))
             name = None
             if m:
-                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                args = [g for g in m.groups()[1:] if g]
+                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
                 report.setdefault(name, {})
             continue
         if name is None:
@@ -230,12 +243,26 @@ def ptxas_rows(text: str, pattern: str) -> dict:
     return report
 
 
+def torch_sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Blocks of ``threads`` that fit an SM of the H100 by registers (allocated
+    8 a thread at a time) and by shared memory (1 KB reserved per block)."""
+    return min(SM_REGISTERS // (-(-registers // 8) * 8 * threads), SM_SMEM // (smem + 1024))
+
+
 def print_ptxas_report(procs, lib) -> None:
-    """Two lines: registers, spills and stack of each bfloat16 kernel of G and
-    of every kernel of H (from ptxas), the dynamic shared memory each asks for
-    at launch (``vmem_attn_bf16_smem_bytes``, ``fused_ce_smem_bytes``: the
-    sizes the launchers pass) and, for H, the blocks that fit an SM by
-    registers and shared memory (``ops/fused_ce.py``'s plans count one)."""
+    """Four lines: registers, spills and stack of each bfloat16 kernel of G,
+    of every kernel of H, of F and of B (from ptxas), the dynamic shared
+    memory each asks for at launch (``vmem_attn_bf16_smem_bytes``,
+    ``fused_ce_smem_bytes``, ``decode_attn_smem_bytes`` at the serving
+    shapes, ``viterbi_smem_bytes``: the sizes the launchers pass) and, for H,
+    F and B, the blocks that fit an SM by registers and shared memory
+    (``ops/fused_ce.py``'s plans count one)."""
     texts = {}
     for name, proc in zip(PTXAS_SOURCES, procs):
         text, _ = proc.communicate(timeout=600)
@@ -257,12 +284,60 @@ def print_ptxas_report(procs, lib) -> None:
         cols = re.search(r"<(\d+)>", name)
         threads = 384 if bf16 else 256
         row["dynamic_smem"] = 0 if "combine" in name else lib.fused_ce_smem_bytes(1 if bf16 else 0, int(cols.group(1)) if cols else 256)
-        by_regs = SM_REGISTERS // (-(-row["registers"] // 8) * 8 * threads)
-        by_smem = SM_SMEM // (row["dynamic_smem"] + 1024)
-        row["blocks_per_sm"] = min(by_regs, by_smem)
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], threads, row["dynamic_smem"])
     if not any("bf16" in k for k in report):
         raise SystemExit(f"no bfloat16 kernel of H in the ptxas report:\n{texts['fused_ce.cu'][-2000:]}")
     print("ptxas: kernel H kernels: " + json.dumps(report))
+    report = ptxas_rows(texts["decode_attn.cu"], r"(decode_attn_cluster_kernel)I(13__nv_bfloat16|f)Li(\d+)E")
+    from prosody_control_french_tts_tpu_torch.ops import decode_attn
+
+    sms = torch_sm_count()
+    for name, (dtype, hd, B, kv, S) in F_SERVING_LAUNCHES.items():
+        C = decode_attn.split_plan(B, kv, S, sms)
+        key = f"decode_attn_cluster_kernel<{'13__nv_bfloat16' if dtype == 1 else 'f'},{hd}>"
+        if key not in report:
+            raise SystemExit(f"no {key} in the ptxas report of decode_attn.cu:\n{texts['decode_attn.cu'][-2000:]}")
+        row = report[key]
+        row[f"blocks_per_cluster_{name}"] = C
+        row[f"dynamic_smem_{name}"] = lib.decode_attn_smem_bytes(dtype, hd, S, C)
+        row[f"blocks_per_sm_{name}"] = blocks_per_sm(row["registers"], 128, row[f"dynamic_smem_{name}"])
+    print("ptxas: kernel F kernels: " + json.dumps({k.replace("13__nv_bfloat16", "bf16").replace("<f,", "<f32,"): v for k, v in report.items()}))
+    report = ptxas_rows(texts["viterbi.cu"], r"(viterbi_kernel)ILi(\d+)E")
+    if not report:
+        raise SystemExit(f"no kernel of B in the ptxas report:\n{texts['viterbi.cu'][-2000:]}")
+    for name, row in report.items():
+        row["dynamic_smem"] = lib.viterbi_smem_bytes(int(re.search(r"<(\d+)>", name).group(1)))
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128, row["dynamic_smem"])
+    print("ptxas: kernel B kernels: " + json.dumps(report))
+
+
+def viterbi_chain_floor(lib, F: int, K: int) -> dict:
+    """The least time kernel B's dependent chains can take at [., F, K]:
+    F - 1 forward steps, each a broadcast of psi (a shuffle), a subtract,
+    ceil(log2 K) levels of max and an add, then F - 1 backtrack steps of one
+    shuffle each. The latencies of a dependent shuffle and of a dependent
+    float add or max are measured on this card by ``viterbi_latency_probe``
+    (one warp, 2^20 dependent steps, CUDA events)."""
+    import math
+
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import kernels
+
+    out = torch.empty(32, device="cuda")
+    steps = 1 << 20
+
+    def probe(op):
+        return cuda_ms(lambda: kernels.check(lib.viterbi_latency_probe(out.data_ptr(), op, steps, kernels.stream_ptr(out)),
+                                             "viterbi_latency_probe"), reps=3)
+
+    shfl_ms = probe(0) / steps
+    alu_ms = probe(1) / (2 * steps)
+    levels = math.ceil(math.log2(K)) if K > 1 else 0
+    floor = (F - 1) * (shfl_ms + (levels + 2) * alu_ms) + (F - 1) * shfl_ms
+    return dict(chain_floor_ms=floor, shfl_ns=shfl_ms * 1e6, alu_ns=alu_ms * 1e6,
+                chain_floor=f"({F} - 1) x (shfl {shfl_ms * 1e6:.2f} ns + ({levels} + 2) x add/max {alu_ms * 1e6:.2f} ns) "
+                            f"+ ({F} - 1) x shfl, latencies measured on this card")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -829,7 +904,7 @@ def profile_decode_steps(fp, cfg, tokens, steps: int = 8) -> dict:
     f_launches = 0
     for name, (ms, n) in by_name.items():
         low = name.lower()
-        if "decode_attn_kernel" in low:
+        if "decode_attn" in low:
             split["kernel_F"] += ms
             f_launches += n
         elif any(w in low for w in ("gemm", "gemv", "cutlass", "cublas", "xmma", "nvjet", "splitk", "wgmma")):
@@ -905,8 +980,12 @@ def check_kernel_f(call, label: str) -> float:
     vc2[:, half + 1 :] = -1e4
     if not torch.equal(base, decode_attn.decode_attention(q, kc2, vc2, half, kv)):
         raise SystemExit(f"kernel F ({label}): rows beyond pos changed the result")
-    print(f"check: decode_attn {label} q {tuple(q.shape)} {str(q.dtype)[6:]} caches {tuple(kc.shape)} pos {pos} and 0: "
-          f"max |err| {worst['bf16']:.3e} (tol {TOL_F_BF16}), upcast to float32 {worst['f32']:.3e} (tol {TOL_F_F32}); future rows ignored")
+    if not torch.equal(decode_attn.decode_attention(q, kc, vc, pos, kv), decode_attn.decode_attention(q, kc, vc, pos, kv)):
+        raise SystemExit(f"kernel F ({label}): two calls on the same tensors differ")
+    C = decode_attn.split_plan(q.shape[0], kv, kc.shape[1], torch_sm_count())
+    print(f"check: decode_attn {label} q {tuple(q.shape)} {str(q.dtype)[6:]} caches {tuple(kc.shape)} pos {pos} and 0 "
+          f"({C} blocks a cluster): max |err| {worst['bf16']:.3e} (tol {TOL_F_BF16}), upcast to float32 {worst['f32']:.3e} "
+          f"(tol {TOL_F_F32}); future rows ignored; two calls bit-equal")
     return worst["bf16"]
 
 
@@ -960,7 +1039,8 @@ def time_kernel_f(call) -> dict:
     t_ops = flops / PEAK_FLOPS["bf16" if item == 2 else "f32"] * 1e3
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, hot_l2_ms=hot_ms, events_ms=events_ms, bytes=nbytes, flops=flops,
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                shape=dict(B=B, H=H, kv_heads=kv, hd=hd, S=kc.shape[1], pos=pos, dtype=str(q.dtype)[6:]))
+                shape=dict(B=B, H=H, kv_heads=kv, hd=hd, S=kc.shape[1], pos=pos, dtype=str(q.dtype)[6:],
+                           blocks_per_cluster=decode_attn.split_plan(B, kv, kc.shape[1], torch_sm_count())))
 
 
 def llm_phases(args, card: str) -> dict:
@@ -1087,10 +1167,11 @@ def llm_phases(args, card: str) -> dict:
     row = dict(KERNEL_F, launches=launches_7b, max_abs_err=err_7b, **{k: time_7b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                check="pass", hot_l2_ms=time_7b["hot_l2_ms"], events_ms=time_7b["events_ms"], shape=time_7b["shape"],
                bench_geometry=dict(time_b, max_abs_err=err_b, launches=bcfg.layers * (NEW - 1)))
-    for label, t, n, err in (("7B geometry", time_7b, launches_7b, err_7b), ("bench geometry", time_b, bcfg.layers * (NEW - 1), err_b)):
+    for label, t, n, err, prev in (("7B geometry", time_7b, launches_7b, err_7b, F_PREVIOUS_MS[0]),
+                                   ("bench geometry", time_b, bcfg.layers * (NEW - 1), err_b, F_PREVIOUS_MS[1])):
         print(f"kernel decode_attn ({label} {json.dumps(t['shape'])}): ms={t['ms']:.4f} (L2-hot {t['hot_l2_ms']:.4f}, between events with host overhead {t['events_ms']:.4f}) launches={n} "
               f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: {t['bytes']} bytes, {t['flops']} flops) plain_ms={t['plain_ms']:.4f} "
-              f"library_ms={t['library_ms']:.4f} max_abs_err={err:.3e} card={card}")
+              f"library_ms={t['library_ms']:.4f} max_abs_err={err:.3e} card={card}; the one-block-per-head design: {prev} ms (PERF.md, not measured here)")
     return row
 
 
@@ -1804,6 +1885,8 @@ def main() -> int:
     ms_b = cuda_ms(lambda: viterbi.viterbi_path(delta, lf, voiced, freq, vuv, jump), reps=20)
     plain_b = cuda_ms(lambda: viterbi.viterbi_path_plain(delta, lf, voiced, freq, vuv, jump), reps=1, warmup=0)
 
+    floor = viterbi_chain_floor(lib, F, K)
+
     rows_out = []
     for spec, n, ms, plain_ms, lib_ms, nbytes, err in (
         (KERNEL_A, launches["pitch_candidates"], ms_a, plain_a, lib_a, bytes_a, err_a),
@@ -1811,10 +1894,12 @@ def main() -> int:
     ):
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows_out.append(dict(spec, launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by="bytes", library_ms=lib_ms, check="pass"))
+                             bound_by="bytes", library_ms=lib_ms, check="pass", **(floor if spec is KERNEL_B else {})))
+        extra = (f"; chain_floor_ms={floor['chain_floor_ms']:.4f} ({floor['chain_floor']}); "
+                 f"the one-warp design: {B_PREVIOUS_MS} ms (PERF.md, not measured here)") if spec is KERNEL_B else ""
         print(f"kernel {spec['name']}: ms={ms:.4f} launches={n} bound_ms={bound:.5f} (bytes {nbytes}) "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-              f"max_abs_err={err:.3e} card={card}")
+              f"max_abs_err={err:.3e} card={card}{extra}")
 
     rows_out.extend(cde_rows)
     rows_out.append(llm_phases(args, card))

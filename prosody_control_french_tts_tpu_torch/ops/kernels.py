@@ -55,8 +55,14 @@ _SIGNATURES = {
     "pitch_candidates_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP),
     # delta, lf, voiced, freq, back, f0, S, F, K, vuv_cost, jump_cost, stream
     "viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP),
-    # q, kc, vc, out, scores, B, S, kv_heads, group, hd, pos, scale, dtype, stream
-    "decode_attn_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I, _VP),
+    # K bound of the instantiation (16 or 32) -> bytes of dynamic shared memory
+    "viterbi_smem_bytes": (_I,),
+    # out, op (0 shuffles, 1 float add + max), steps, stream
+    "viterbi_latency_probe": (_VP, _I, _I, _VP),
+    # q, kc, vc, out, B, S, kv_heads, group, hd, pos, scale, dtype, blocks per cluster, stream
+    "decode_attn_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I, _I, _VP),
+    # dtype, hd, S, blocks per cluster -> bytes of dynamic shared memory
+    "decode_attn_smem_bytes": (_I, _I, _I, _I),
     # q, k, v, o, lse, B, L, H, KVH, hd, scale, dtype, stream
     "vmem_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _VP),
     # q, k, v, do, lse, delta, dq, dk, dv, B, L, H, KVH, hd, scale, stream (float32)

@@ -2,8 +2,9 @@
 
 Counterpart of the TPU kernel ``ops/viterbi_pallas.py:viterbi_pallas_batched``
 of the JAX package. On CUDA tensors :func:`viterbi_path` launches the
-hand-written kernel ``csrc/viterbi.cu`` (one warp per segment, back-pointer
-recurrence); on CPU tensors it runs :func:`viterbi_path_plain`, the same
+hand-written kernel ``csrc/viterbi.cu`` (one block per segment: one warp
+runs the back-pointer recurrence with the transition costs computed a tile
+of frames ahead by the other three); on CPU tensors it runs :func:`viterbi_path_plain`, the same
 recurrence as a PyTorch loop over frames, vectorised over segments, with
 the same operations in the same order — the two agree bit for bit.
 
@@ -19,7 +20,7 @@ import torch
 
 from . import kernels
 
-MAX_K = 32  # candidates ride the lanes of one warp
+MAX_K = 32  # candidates ride the lanes of one warp; back-pointers fit a byte
 
 launches = 0  # kernel launches (CUDA path only)
 
@@ -71,7 +72,7 @@ def viterbi_path(delta, lf, voiced, freq, vuv_cost: float, jump_cost: float) -> 
             raise ValueError(f"viterbi_path: {name} shape {tuple(t.shape)} != {tuple(delta.shape)}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"viterbi_path: K={K} outside [1, {MAX_K}]")
-    back = torch.empty((S, F, K), dtype=torch.int16, device=dev)
+    back = torch.empty((S, F, K), dtype=torch.uint8, device=dev)
     f0 = torch.empty((S, F), dtype=torch.float32, device=dev)
     lib = kernels.library()
     global launches

@@ -64,6 +64,18 @@ def random_viterbi_inputs(seed, S=3, F=50, K=15):
     return delta, lf, voiced, freq
 
 
+def tie_viterbi_inputs(seed, S, F, K):
+    """Tie-heavy δ, lf, voiced, freq [S, F, K]: frequencies are powers of two
+    (0 and 1,024 Hz unvoiced), so jump costs are exact multiples of the jump
+    cost, and δ takes four values, -inf among them (ties at -inf)."""
+    rng = np.random.default_rng(seed)
+    freq = rng.choice(np.array([0, 64, 128, 256, 512, 1024], np.float32), size=(S, F, K))
+    delta = rng.choice(np.array([-np.inf, 0.0, 0.5, 1.0], np.float32), size=(S, F, K), p=[0.1, 0.3, 0.3, 0.3])
+    voiced = (freq > 0) & (freq <= 600.0)
+    lf = np.log2(np.maximum(freq, 1e-6)).astype(np.float32)
+    return delta, lf, voiced, freq
+
+
 def test_candidates_tie_order_and_padding():
     """Exact ties go to the smallest lag; rows with fewer maxima than k are
     zero-padded with valid False."""
@@ -100,15 +112,36 @@ def test_candidates_kernel_matches_plain(cuda, seed):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
 
 
+VITERBI_SHAPES = [
+    (5, 400, 15), (2, 1, 15), (3, 37, 32), (1, 20, 1),
+    (2, 2, 15), (3, 17, 16), (2, 65, 16), (2, 129, 17), (2, 17, 32), (10, 4715, 15),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(5, 400, 15), (2, 1, 15), (3, 37, 32), (1, 20, 1)])
+@pytest.mark.parametrize("shape", VITERBI_SHAPES)
 def test_viterbi_kernel_matches_plain(cuda, shape):
-    """On the card: f0 equal in every frame, K from 1 to 32 and F = 1."""
+    """On the card: f0 equal in every frame, K from 1 to 32 (both
+    instantiations), F = 1, 2, tiles of frames partly filled, and the
+    measure voice's [10, 4,715, 15]."""
     S, F, K = shape
     args = [torch.from_numpy(a).to(cuda) for a in random_viterbi_inputs(4, S=S, F=F, K=K)]
     got = viterbi.viterbi_path(*args, 0.14 * 0.5, 0.35 * 0.5)
     want = viterbi.viterbi_path_plain(*args, 0.14 * 0.5, 0.35 * 0.5)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 40, 1), (3, 40, 15), (2, 70, 16), (2, 33, 32), (2, 1, 15), (2, 2, 32)])
+def test_viterbi_kernel_keeps_the_first_argmax_on_ties(cuda, shape):
+    """On the card, tie-heavy inputs (exact ties, ties at -inf): the kernel's
+    argmax tree takes the first index of every max, as the plain version's
+    torch.argmax does; f0 equal in every frame, twice."""
+    S, F, K = shape
+    args = [torch.from_numpy(a).to(cuda) for a in tie_viterbi_inputs(7, S, F, K)]
+    want = viterbi.viterbi_path_plain(*args, 0.14, 0.35)
+    for _ in range(2):
+        torch.testing.assert_close(viterbi.viterbi_path(*args, 0.14, 0.35), want, rtol=0, atol=0)
 
 
 def decode_attn_inputs(B, H, KV, hd, S, dtype, device, seed=0):
@@ -130,6 +163,10 @@ def decode_attn_inputs(B, H, KV, hd, S, dtype, device, seed=0):
         (1, 8, 1, 128, 700, (0, 5, 699)),  # group 8, many passes of the block
         (2, 10, 2, 64, 77, (31, 32, 76)),  # group 5, row counts around a pass's edge
         (2, 6, 6, 64, 33, (32,)),  # group 1
+        (1, 7, 1, 128, 40, (0, 1, 3, 6, 39)),  # 8 blocks a cluster: pos with fewer live rows than blocks
+        (1, 8, 1, 64, 20, (0, 2, 7, 19)),  # the same at hd 64, group 8
+        (16, 28, 4, 128, 192, (64, 190)),  # the 7B serving shape
+        (64, 14, 2, 64, 320, (64, 318)),  # the bench serving shape
     ],
 )
 def test_decode_attn_kernel_matches_plain(cuda, geom, dtype, tol):
@@ -159,6 +196,21 @@ def test_decode_attn_kernel_ignores_future_rows(cuda):
     first = decode_attn.decode_attention(q, kc, vc, 0, 2)
     want = vc[:, 0].reshape(4, 2, 1, 64).expand(4, 2, 7, 64).reshape(4, 14, 64)
     torch.testing.assert_close(first, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [(16, 28, 4, 128, 192, 190), (64, 14, 2, 64, 320, 100), (1, 8, 1, 128, 40, 5)])
+def test_decode_attn_bfloat16_is_deterministic_and_ignores_future_rows(cuda, geom):
+    """bfloat16, clusters of several blocks: two calls give the same bits, and
+    rows beyond pos set to +-1e4 change nothing."""
+    B, H, KV, hd, S, pos = geom
+    q, kc, vc = decode_attn_inputs(B, H, KV, hd, S, torch.bfloat16, cuda, seed=3)
+    base = decode_attn.decode_attention(q, kc, vc, pos, KV)
+    assert torch.equal(base, decode_attn.decode_attention(q, kc, vc, pos, KV))
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, pos + 1 :] = 1e4
+    vc2[:, pos + 1 :] = -1e4
+    assert torch.equal(base, decode_attn.decode_attention(q, kc2, vc2, pos, KV))
 
 
 @pytest.mark.gpu
