@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the measure-and-SSML step, the
 eight-step voice pipeline, the standalone frame and cumsum kernels, the LLM
-serving path and the LLM training path (LoRA fine-tuning).
+serving path and the LLM training path (LoRA fine-tuning, at L 512 with
+kernel G and at L 1024 / 768 with the flash attention).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -72,15 +73,29 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
     launches, their plain versions and the library calls
     (``scaled_dot_product_attention``, ``F.cross_entropy`` of the dense
     logits), forward and backward, as replays of CUDA graphs between CUDA
-    events.
+    events;
+14. trains at the cascade's real lengths with ``attn_impl="flash"`` (the
+    counterpart of the upstream Pallas TPU flash-attention op, K/V repeated
+    to all heads): ``qwen25_7b`` at full width and depth, B 2, L 1024 (stage
+    A's length), and the bench geometry at B 8, L 768 (stage B's), with the
+    flash attention counted layers x steps forward and backward, kernel G and
+    the dot path never; prints the 7B step's peak memory beside one step of
+    the dot path on the same model; holds ("flash", "fused") against ("dot",
+    "dense") on the card and the CPU at L 256; holds the flash attention
+    against its plain version on the captured 7B and bench tensors (bf16 and
+    upcast to float32, at ``FA_LIMITS``), shows its bf16 backward gives the
+    same bits twice at the 7B shape, and times it beside its plain version
+    and ``scaled_dot_product_attention(is_causal=True)`` as CUDA-graph
+    replays. The trainers' step splits (torch.profiler) come last of all.
 
 While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
-``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu`` and
-``csrc/viterbi.cu`` reports the registers, spills and shared memory of kernel
-G's bfloat16 kernels and of all of kernels H's, F's and B's.
+``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu``,
+``csrc/viterbi.cu`` and ``csrc/flash_attention.cu`` reports the registers,
+spills and shared memory of kernel G's bfloat16 kernels and of all of
+kernels H's, F's, B's and the flash attention's.
 
 It prints the card's name and power limit, one line per kernel, a
-``{"kernels": [...]}`` line with ten entries, and last ``{"ok": true,
+``{"kernels": [...]}`` line with twelve entries, and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -90,6 +105,7 @@ from __future__ import annotations
 import argparse
 import collections
 import csv
+import importlib
 import json
 import re
 import subprocess
@@ -97,6 +113,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -124,6 +141,27 @@ TOL_H_GRAD_F32 = 1e-5  # dh at D 256: relative to the plain gradient's largest e
 TOL_H_GRAD_WIDE = 1e-4  # dh at full width, float32: sums over 152,064 columns in another order
 TOL_H_GRAD_BF16 = 2e-2
 TOL_PARITY = 5e-4  # loss curves, relative
+# the flash attention (FA) vs plain in bfloat16. Forward, row by row: for
+# each output row (hd values), |got - plain| <= TOL_FA_BF16 * (|plain| +
+# FA_FLOOR * the largest row |plain|), |.| the row's 2-norm. p is rounded
+# against the running max of 64-key tiles, the plain version's against
+# 128-key tiles, and the outputs round once more, each about 2^-9 relative and
+# independent over the keys, so a row's error stays a fixed share of the row
+# however many keys it averages (G's absolute limit does not: a row of L keys
+# has |o| ~ L^-1/2, 0.05 at L 1,024). A key tile dropped from a row of n keys
+# moves it by about 8 / sqrt(n) of itself (0.25 at n 1,024). Gradients, per
+# (b, h): the 2-norm of the kernel's error against the plain version in
+# float32 on the upcast inputs, over the plain bf16 version's own error
+# against it, <= TOL_FA_GRAD_BF16. dq_i = sum_j ds_ij k_j with sum_j ds_ij = 0
+# cancels keys' shared part, but the roundings of di and ds do not: where
+# keys share a large part, dq's bf16 error is a large share of dq in both
+# versions (a row measure read 0.19 on the 7B step's tensors), so the kernel
+# is held to the plain version's accuracy, not to dq's size. The two errors
+# come from the same rounding points, in other tiles. Float32 is held to G's
+# float32 limits, 2.5e3 times below a long row's |o|.
+TOL_FA_BF16 = 2**-6  # forward, row by row
+TOL_FA_GRAD_BF16 = 2.0  # dq, dk, dv: error over the plain version's error
+FA_FLOOR = 1e-3
 # kernel G's bfloat16 times (ms; 7B shape, bench shape) of the CUDA-core
 # design that the tensor-core kernels replaced: PERF.md section 6, H100 80GB
 # HBM3 at 700 W, CUDA-graph replays with L2 cold. Recorded, not measured by
@@ -176,6 +214,16 @@ KERNEL_H_FWD = dict(
     replaces="prosody_control_french_tts_tpu/ops/fused_ce.py:120",
 )
 KERNEL_H_BWD = dict(KERNEL_H_FWD, name="fused_ce_bwd", replaces="prosody_control_french_tts_tpu/ops/fused_ce.py:162")
+# the upstream Pallas TPU flash-attention op (the installed jax package's file),
+# reached from prosody_control_french_tts_tpu/models/llm.py:207-212
+UPSTREAM_FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+KERNEL_FA_FWD = dict(
+    name="flash_attn_fwd",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/flash_attention.cu",
+    replaces=f"{UPSTREAM_FA}:589",
+)
+KERNEL_FA_BWD = dict(KERNEL_FA_FWD, name="flash_attn_bwd", replaces=f"{UPSTREAM_FA}:941", also_replaces=f"{UPSTREAM_FA}:1287")
 KERNEL_C = dict(
     name="frames",
     route="cuda",
@@ -199,13 +247,12 @@ def card_line() -> str:
     return out[0].strip()
 
 
-PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu")
+PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu", "flash_attention.cu")
 
 
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on ``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``,
-    ``csrc/decode_attn.cu`` and ``csrc/viterbi.cu`` (the build's own flags) in
-    the background; :func:`print_ptxas_report` reads them."""
+    """Start ``nvcc -Xptxas -v`` on each of :data:`PTXAS_SOURCES` (the build's
+    own flags) in the background; :func:`print_ptxas_report` reads them."""
     from prosody_control_french_tts_tpu_torch.ops import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -256,13 +303,14 @@ def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
 
 
 def print_ptxas_report(procs, lib) -> None:
-    """Four lines: registers, spills and stack of each bfloat16 kernel of G,
-    of every kernel of H, of F and of B (from ptxas), the dynamic shared
-    memory each asks for at launch (``vmem_attn_bf16_smem_bytes``,
-    ``fused_ce_smem_bytes``, ``decode_attn_smem_bytes`` at the serving
-    shapes, ``viterbi_smem_bytes``: the sizes the launchers pass) and, for H,
-    F and B, the blocks that fit an SM by registers and shared memory
-    (``ops/fused_ce.py``'s plans count one)."""
+    """Five lines: registers, spills and stack of each bfloat16 kernel of G,
+    of every kernel of H, of F, of B and of the flash attention (from ptxas),
+    the dynamic shared memory each asks for at launch
+    (``vmem_attn_bf16_smem_bytes``, ``fused_ce_smem_bytes``,
+    ``decode_attn_smem_bytes`` at the serving shapes, ``viterbi_smem_bytes``,
+    ``flash_attn_smem_bytes``: the sizes the launchers pass) and, for H, F, B
+    and the flash attention, the blocks that fit an SM by registers and shared
+    memory (``ops/fused_ce.py``'s plans count one)."""
     texts = {}
     for name, proc in zip(PTXAS_SOURCES, procs):
         text, _ = proc.communicate(timeout=600)
@@ -309,6 +357,15 @@ def print_ptxas_report(procs, lib) -> None:
         row["dynamic_smem"] = lib.viterbi_smem_bytes(int(re.search(r"<(\d+)>", name).group(1)))
         row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128, row["dynamic_smem"])
     print("ptxas: kernel B kernels: " + json.dumps(report))
+    report = ptxas_rows(texts["flash_attention.cu"], r"(flash_(?:fwd|dq|dkv)_(?:bf16|f32))ILi(\d+)E")
+    if len(report) != 12:
+        raise SystemExit(f"{len(report)} of the 12 flash-attention kernels in the ptxas report:\n{texts['flash_attention.cu'][-2000:]}")
+    for name, row in report.items():
+        bf16 = "bf16" in name
+        row["dynamic_smem"] = lib.flash_attn_smem_bytes(0 if "fwd" in name else 1 if "dq" in name else 2,
+                                                        int(re.search(r"<(\d+)>", name).group(1)), int(bf16))
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128 if bf16 else 256, row["dynamic_smem"])
+    print("ptxas: flash attention kernels: " + json.dumps(report))
 
 
 def viterbi_chain_floor(lib, F: int, K: int) -> dict:
@@ -358,14 +415,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 class Capture:
     """Wrap a module function to keep the arguments of its calls (the last
-    ``keep`` of them, or all)."""
+    ``keep`` of them, or all) and count them (``count``)."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.orig = module, name, getattr(module, name)
         self.calls = collections.deque(maxlen=keep)
+        self.count = 0
 
     def __enter__(self):
         def wrapper(*a, **k):
+            self.count += 1
             self.calls.append((a, k))
             return self.orig(*a, **k)
 
@@ -382,6 +441,7 @@ class GradCapture(Capture):
 
     def __enter__(self):
         def wrapper(*a, **k):
+            self.count += 1
             out = self.orig(*a, **k)
             rec = [a, None]
             if out.requires_grad:
@@ -1181,31 +1241,65 @@ def llm_phases(args, card: str) -> dict:
 
 
 def train_counts() -> dict:
-    from prosody_control_french_tts_tpu_torch.ops import fused_ce, vmem_attn
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention, fused_ce, vmem_attn
 
     return {"vmem_attn_fwd": vmem_attn.launches, "vmem_attn_bwd": vmem_attn.launches_bwd,
+            "flash_attn_fwd": flash_attention.launches, "flash_attn_bwd": flash_attention.launches_bwd,
             "fused_ce_fwd": fused_ce.launches, "fused_ce_bwd": fused_ce.launches_bwd}
 
 
 def reset_train_counts() -> None:
-    from prosody_control_french_tts_tpu_torch.ops import fused_ce, vmem_attn
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention, fused_ce, vmem_attn
 
     vmem_attn.launches = vmem_attn.launches_bwd = 0
+    flash_attention.launches = flash_attention.launches_bwd = 0
     fused_ce.launches = fused_ce.launches_bwd = 0
+
+
+# attn_impl -> (module under ops, wrapper the model calls, forward and
+# backward count keys) of the attention kernel the training step runs
+ATTN_WRAPPERS = {"vmem": ("vmem_attn", "causal_attention_vmem", "vmem_attn_fwd", "vmem_attn_bwd"),
+                 "flash": ("flash_attention", "flash_attention", "flash_attn_fwd", "flash_attn_bwd")}
+
+
+def expected_train_counts(attn_impl: str, layers: int, steps: int) -> dict:
+    """Every kernel count of the training path after ``steps`` steps: the
+    attention of ``attn_impl`` layers x steps each way, H once a step each
+    way, the other attention kernel never."""
+    *_, fwd, bwd = ATTN_WRAPPERS[attn_impl]
+    want = {k: 0 for k in train_counts()}
+    want.update({fwd: layers * steps, bwd: layers * steps, "fused_ce_fwd": steps, "fused_ce_bwd": steps})
+    return want
+
+
+def set_attn_impl(model, attn_impl: str) -> None:
+    """Switch a built DecoderLM's attention path: every module that reads the
+    config gets a copy with ``attn_impl`` replaced."""
+    import dataclasses
+
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = dataclasses.replace(m.cfg, attn_impl=attn_impl)
 
 
 def profile_train_steps(run, steps: int) -> dict:
     """``run()`` (``steps`` optimizer steps) under torch.profiler: per-step
-    wall and device time split into matrix products (cuBLAS), the four
-    kernel launches of G and H, other kernels and copies."""
+    wall and device time split into matrix products (cuBLAS), the attention
+    kernels (G or the flash attention) and H, forward and backward, other
+    kernels and copies."""
     wall_ms, by_name = profile_device(run)
-    split = {"matmul": 0.0, "G_fwd": 0.0, "G_bwd": 0.0, "H_fwd": 0.0, "H_bwd": 0.0, "other_kernels": 0.0, "copies": 0.0}
+    split = {"matmul": 0.0, "G_fwd": 0.0, "G_bwd": 0.0, "FA_fwd": 0.0, "FA_bwd": 0.0, "H_fwd": 0.0, "H_bwd": 0.0,
+             "other_kernels": 0.0, "copies": 0.0}
     for name, (ms, _) in by_name.items():
         low = name.lower()
         if "vmem_attn_fwd" in low:
             split["G_fwd"] += ms
         elif "vmem_attn_bwd" in low:
             split["G_bwd"] += ms
+        elif "flash_fwd" in low:
+            split["FA_fwd"] += ms
+        elif "flash_dq" in low or "flash_dkv" in low:
+            split["FA_bwd"] += ms
         elif "fused_ce_fwd" in low or "fused_ce_combine" in low:
             split["H_fwd"] += ms
         elif "fused_ce_coef" in low or "fused_ce_dh" in low:
@@ -1240,9 +1334,13 @@ def frozen_fingerprint(model) -> dict:
     return {k: float(v.detach().sum(dtype=torch.float64)) for k, v in leaves.items()}
 
 
-def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: bool):
+def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: bool, dot_peak: bool = False):
     """init_train + make_train_step on the card, one warm step then
-    TRAIN_STEPS more on a repeated batch; the checks of phase 11. Returns
+    TRAIN_STEPS more on a repeated batch; the checks of phases 11 and 14: the
+    attention kernel of ``cfg.attn_impl`` counted layers x steps each way, the
+    other attention kernel and the dot path never, H once a step each way.
+    With ``dot_peak``, one more step through the dot path (the [B, H, L, L]
+    scores in device memory) on the same model, for its peak memory. Returns
     (launch counts of all the steps, captured tensors for the kernel checks,
     times, a function that profiles one more step and prints its split).
     The split is taken last of all: once the trainers have run, torch.profiler
@@ -1251,8 +1349,8 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
     import numpy as np
     import torch
 
-    from prosody_control_french_tts_tpu_torch.models import training
-    from prosody_control_french_tts_tpu_torch.ops import fused_ce, vmem_attn
+    from prosody_control_french_tts_tpu_torch.models import llm, training
+    from prosody_control_french_tts_tpu_torch.ops import fused_ce
 
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()  # an earlier trainer kept alive for its step split
@@ -1281,12 +1379,15 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
           f"built in {build_s:.1f} s, {(torch.cuda.memory_allocated() - base_bytes) / 1e9:.2f} GB of weights; cuts: none")
 
     reset_train_counts()
+    cap_dot = Capture(llm, "_masked_attention", keep=1).__enter__()  # the dot path, counted over every step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [float(single(ids, mask))]  # the warm step (kernels' first launches, cuBLAS plans)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
-    with GradCapture(vmem_attn, "causal_attention_vmem", keep=1) as cap_g, GradCapture(fused_ce, "linear_ce_rows", keep=1) as cap_h:
+    attn_module, attn_wrapper, *_ = ATTN_WRAPPERS[cfg.attn_impl]
+    attn_module = importlib.import_module(f"prosody_control_french_tts_tpu_torch.ops.{attn_module}")
+    with GradCapture(attn_module, attn_wrapper, keep=1) as cap_g, GradCapture(fused_ce, "linear_ce_rows", keep=1) as cap_h:
         t0 = time.perf_counter()
         if scan:
             losses += step(ids.expand(TRAIN_STEPS, B, L), mask).tolist()
@@ -1294,8 +1395,9 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
             losses += [float(step(ids, mask)) for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-    counts = train_counts()
-    want = {"vmem_attn_fwd": cfg.layers * n_steps, "vmem_attn_bwd": cfg.layers * n_steps, "fused_ce_fwd": n_steps, "fused_ce_bwd": n_steps}
+    cap_dot.__exit__()
+    counts = dict(train_counts(), dot_attention=cap_dot.count)
+    want = dict(expected_train_counts(cfg.attn_impl, cfg.layers, n_steps), dot_attention=0)
     print(f"train {label} main path launches: {json.dumps(counts)} (expected {json.dumps(want)})")
     if counts != want:
         raise SystemExit(f"train {label}: launch counts {counts}, expected {want}")
@@ -1307,14 +1409,29 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
     if still:
         raise SystemExit(f"train {label}: {len(still)} adapter leaves did not move, e.g. {still[0]}")
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    print(f"train {label} ({'scan_steps=%d' % TRAIN_STEPS if scan else 'single steps'}, bf16 frozen base, vmem + fused_qkv + fused loss): "
+    print(f"train {label} ({'scan_steps=%d' % TRAIN_STEPS if scan else 'single steps'}, bf16 frozen base, {cfg.attn_impl} + fused_qkv + fused loss): "
           f"losses {[round(x, 4) for x in losses]}; warm {warm_ms:.1f} ms per optimizer step, {B * L / warm_ms * 1e3:.1f} tokens/s; "
           f"cold first step {cold_ms:.1f} ms; peak device memory {peak_gb:.2f} GB; card={card}")
-    (q, k, v, _), dout = cap_g.calls[0]
+    dot_peak_gb = None
+    if dot_peak:
+        set_attn_impl(model, "dot")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with Capture(llm, "_masked_attention", keep=1) as cap_dot:
+            t0 = time.perf_counter()
+            dot_loss = float(single(ids, mask))
+            dot_ms = (time.perf_counter() - t0) * 1e3
+        dot_peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+        set_attn_impl(model, cfg.attn_impl)
+        if cap_dot.count != cfg.layers or not np.isfinite(dot_loss):
+            raise SystemExit(f"train {label}: the dot step took the dot path {cap_dot.count} times, loss {dot_loss}")
+        print(f"train {label} peak device memory: {cfg.attn_impl} {peak_gb:.2f} GB, dot path {dot_peak_gb:.2f} GB for one step at the same shape "
+              f"({dot_ms:.1f} ms, loss {dot_loss:.4f}); card={card}")
+    (q, k, v, *_), dout = cap_g.calls[0]
     (h, w, tgt), g = cap_h.calls[0]
     captured = dict(q=q.detach().contiguous(), k=k.detach().contiguous(), v=v.detach().contiguous(), dout=dout.contiguous(),
                     h=h.detach().contiguous(), w=w.detach(), tgt=tgt.detach().to(torch.int32).contiguous(), g=g.float().contiguous())
-    stats = dict(warm_ms=warm_ms, tokens_per_s=B * L / warm_ms * 1e3, cold_ms=cold_ms, peak_gb=peak_gb, losses=losses)
+    stats = dict(warm_ms=warm_ms, tokens_per_s=B * L / warm_ms * 1e3, cold_ms=cold_ms, peak_gb=peak_gb, dot_peak_gb=dot_peak_gb, losses=losses)
 
     def split_step():
         # one more step under torch.profiler; the closure keeps the trainer alive until then
@@ -1323,12 +1440,13 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
     return counts, captured, stats, split_step
 
 
-def parity_on_card(seed: int) -> None:
-    """Phase 12: 4 steps at a small float32 shape, ("vmem", "fused") on the
-    card against ("dot", "dense") on the card and on the CPU, from the same
-    initial weights. The shape is that of the JAX package's train-step parity
-    test with dim 256 instead of 128, so that the head dim is 64, one of the
-    two that kernel G is instantiated for."""
+def parity_on_card(seed: int, attn_impl: str = "vmem", L: int = 128) -> None:
+    """Phases 12 and 14: 4 steps at a small float32 shape, (attn_impl,
+    "fused") on the card against ("dot", "dense") on the card and on the CPU,
+    from the same initial weights. The shape is that of the JAX package's
+    train-step parity test with dim 256 instead of 128, so that the head dim
+    is 64, one of the two that the kernels are instantiated for; L 128 for G,
+    256 (two tiles of the upstream op) for the flash attention."""
     import dataclasses
 
     import numpy as np
@@ -1336,30 +1454,30 @@ def parity_on_card(seed: int) -> None:
 
     from prosody_control_french_tts_tpu_torch.models import llm, training
 
-    cfg = llm.LLMConfig(vocab_size=1024, dim=256, layers=2, heads=4, kv_heads=2, ffn=256, max_len=128, lora_rank=4, dtype=torch.float32)
-    ids = np.random.default_rng(seed).integers(1, cfg.vocab_size, (2, 128)).astype(np.int32)
-    mask = np.ones((2, 128), np.float32)
+    cfg = llm.LLMConfig(vocab_size=1024, dim=256, layers=2, heads=4, kv_heads=2, ffn=256, max_len=L, lora_rank=4, dtype=torch.float32)
+    ids = np.random.default_rng(seed).integers(1, cfg.vocab_size, (2, L)).astype(np.int32)
+    mask = np.ones((2, L), np.float32)
     init = llm.DecoderLM(cfg, device="cpu", seed=seed).state_dict()
     curves = {}
     reset_train_counts()
-    for attn_impl, loss_impl, device in (("vmem", "fused", "cuda"), ("dot", "dense", "cuda"), ("dot", "dense", "cpu")):
-        model, tx, state = training.init_train(dataclasses.replace(cfg, attn_impl=attn_impl), lr=1e-3, device=device)
+    for impl, loss_impl, device in ((attn_impl, "fused", "cuda"), ("dot", "dense", "cuda"), ("dot", "dense", "cpu")):
+        model, tx, state = training.init_train(dataclasses.replace(cfg, attn_impl=impl), lr=1e-3, device=device)
         model.load_state_dict(init)
         step = training.make_train_step(model, tx, trainable=state.mask, loss_impl=loss_impl)
-        curves[(attn_impl, loss_impl, device)] = [float(step(ids, mask)) for _ in range(4)]
+        curves[(impl, loss_impl, device)] = [float(step(ids, mask)) for _ in range(4)]
     counts = train_counts()
-    if counts != {"vmem_attn_fwd": 8, "vmem_attn_bwd": 8, "fused_ce_fwd": 4, "fused_ce_bwd": 4}:
-        raise SystemExit(f"parity: launch counts {counts}")
-    got = curves[("vmem", "fused", "cuda")]
+    if counts != expected_train_counts(attn_impl, cfg.layers, 4):
+        raise SystemExit(f"parity ({attn_impl}): launch counts {counts}")
+    got = curves[(attn_impl, "fused", "cuda")]
     worst = 0.0
     for key in (("dot", "dense", "cuda"), ("dot", "dense", "cpu")):
         for a, b in zip(got, curves[key]):
             worst = max(worst, abs(a - b) / abs(b))
-    print(f"parity: loss curves over 4 float32 steps: (vmem, fused) on the card {[round(x, 6) for x in got]}, (dot, dense) on the card "
+    print(f"parity: loss curves over 4 float32 steps at L {L}: ({attn_impl}, fused) on the card {[round(x, 6) for x in got]}, (dot, dense) on the card "
           f"{[round(x, 6) for x in curves[('dot', 'dense', 'cuda')]]}, on the CPU {[round(x, 6) for x in curves[('dot', 'dense', 'cpu')]]}; "
           f"max relative difference {worst:.3e} (tol {TOL_PARITY})")
     if worst > TOL_PARITY or not got[-1] < got[0]:
-        raise SystemExit(f"parity: loss curves differ by {worst} relative")
+        raise SystemExit(f"parity ({attn_impl}): loss curves differ by {worst} relative")
 
 
 def attn_grads(fn, q, k, v, dout, scale):
@@ -1369,56 +1487,118 @@ def attn_grads(fn, q, k, v, dout, scale):
     return out.detach(), q.grad, k.grad, v.grad
 
 
-def check_kernel_g(q, k, v, dout, label: str) -> tuple[float, float]:
-    """Kernel G forward and backward against its plain version (autograd), in
-    the tensors' dtype and upcast to float32. Returns the working-dtype max
-    |err| of the forward and of the gradients."""
-    import torch
+def g_measure(got, want, ref, grad: bool) -> float:
+    """Kernel G's measure: the forward's max |err|, a gradient's max |err|
+    over the plain gradient's largest element (``ref`` unused)."""
+    d = float((got.float() - want.float()).abs().max())
+    return d / max(float(want.float().abs().max()), 1e-30) if grad else d
 
+
+def fa_measure(got, want, ref, grad: bool) -> float:
+    """The flash attention's bfloat16 measure on [B, H, L, hd]. Forward: the
+    largest row error over its scale, |got - plain| / (|plain| + FA_FLOOR *
+    the largest |plain|), |.| the 2-norm of a row of hd values. Gradients: the
+    largest over (b, h) of |got - ref| / |plain - ref|, ``ref`` the plain
+    version in float32 on the upcast inputs, |.| the 2-norm over L x hd."""
+    if grad:
+        d = (got.float() - ref).flatten(2).norm(dim=-1)
+        n = (want.float() - ref).flatten(2).norm(dim=-1)
+        return float((d / n.clamp_min(1e-30)).max())
+    d = (got.float() - want.float()).norm(dim=-1)
+    n = want.float().norm(dim=-1)
+    return float((d / (n + FA_FLOOR * n.max()).clamp_min(1e-30)).max())
+
+
+class Limit(NamedTuple):
+    measure: Callable  # (got, plain, grad) -> the number held to the limit
+    fwd: float
+    grad: float  # dq, dk, dv
+    text: str  # what the measure is, for the log
+
+
+G_TEXT = "forward max |err|, gradients max |err| over the largest element"
+G_LIMITS = {"bf16": Limit(g_measure, TOL_G_BF16, TOL_G_GRAD_BF16, G_TEXT), "f32": Limit(g_measure, TOL_G_F32, TOL_G_GRAD_F32, G_TEXT)}
+FA_LIMITS = {"bf16": Limit(fa_measure, TOL_FA_BF16, TOL_FA_GRAD_BF16,
+                          f"forward: row 2-norm of the error over the row's, floor {FA_FLOOR} of the largest; "
+                          "gradients: error against plain float32 over the plain bf16 version's, per (b, h)"),
+             "f32": G_LIMITS["f32"]}
+
+
+def vmem_call(q, k, v, scale):
     from prosody_control_french_tts_tpu_torch.ops import vmem_attn
 
+    return vmem_attn.causal_attention_vmem(q, k, v, scale)
+
+
+def vmem_plain(q, k, v, scale):
+    from prosody_control_french_tts_tpu_torch.ops import vmem_attn
+
+    return vmem_attn.causal_attention_vmem_plain(q, k, v, scale)
+
+
+def flash_call(q, k, v, scale):
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention
+
+    return flash_attention.flash_attention(q, k, v, sm_scale=scale)
+
+
+def flash_plain(q, k, v, scale):
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention
+
+    return flash_attention.flash_attention_plain(q, k, v, scale)
+
+
+def check_attention_kernel(call, plain, name: str, q, k, v, dout, label: str, limits: dict) -> tuple[float, float]:
+    """An attention kernel ``call`` (kernel G or the flash attention, as
+    fn(q, k, v, scale)) forward and backward against its ``plain`` version,
+    in the tensors' dtype and upcast to float32, each held to its ``Limit``
+    in ``limits`` ("bf16", "f32"). Returns the working dtype's max |err| of
+    the forward and of the gradients."""
+    import torch
+
     scale = float(q.shape[-1] ** -0.5)
-    out = {}
-    casts = [("f32", lambda t: t.float(), TOL_G_F32, TOL_G_GRAD_F32)]
+    out, failed = {}, []
+    casts = [("f32", lambda t: t.float())]
     if q.dtype == torch.bfloat16:
-        casts.insert(0, ("bf16", lambda t: t, TOL_G_BF16, TOL_G_GRAD_BF16))
-    for name, cast, tol, gtol in casts:
+        casts.append(("bf16", lambda t: t))
+    ref = None  # the plain version in float32: the first pass's
+    for kind, cast in casts:
+        lim = limits[kind]
         args = [cast(t) for t in (q, k, v, dout)]
-        got = attn_grads(vmem_attn.causal_attention_vmem, *args, scale)
+        got = attn_grads(call, *args, scale)
         torch.cuda.synchronize()
-        want = attn_grads(vmem_attn.causal_attention_vmem_plain, *args, scale)
-        err = float((got[0].float() - want[0].float()).abs().max())
-        if not torch.isfinite(got[0]).all() or err > tol:
-            raise SystemExit(f"kernel G forward ({label}, {name}): max |err| {err} beyond {tol}")
-        gerr, grel = 0.0, 0.0
-        for what, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
-            d = float((a.float() - b.float()).abs().max())
-            ref = float(b.float().abs().max())
-            if a.dtype != b.dtype or not torch.isfinite(a).all() or d > gtol * ref:
-                raise SystemExit(f"kernel G backward ({label}, {name}): {what} differs by {d} with largest element {ref} (tol {gtol} relative)")
-            gerr, grel = max(gerr, d), max(grel, d / ref)
-        out[name] = (err, gerr, grel)
-    first = next(iter(out))
-    print(f"check: vmem_attn {label} q {tuple(q.shape)} kv heads {k.shape[2]} {str(q.dtype)[6:]}: " + "; ".join(
-        f"{name} forward max |err| {e:.3e}, gradients max |err| {ge:.3e} ({gr:.3e} of the largest element)" for name, (e, ge, gr) in out.items())
-        + f" (tols {TOL_G_BF16} / {TOL_G_F32} absolute forward, {TOL_G_GRAD_BF16} / {TOL_G_GRAD_F32} relative gradients)")
-    return out[first][0], out[first][1]
+        want = attn_grads(plain, *args, scale)
+        ref = ref or [w.float() for w in want]
+        errs = [lim.measure(a, b, r, i > 0) for i, (a, b, r) in enumerate(zip(got, want, ref))]
+        for i, (what, a, b, e) in enumerate(zip(("forward", "dq", "dk", "dv"), got, want, errs)):
+            if a.dtype != b.dtype or not torch.isfinite(a).all() or not e <= (lim.grad if i else lim.fwd):
+                failed.append(f"{what} ({kind}) {e} beyond {lim.grad if i else lim.fwd}")
+        abs_f = float((got[0].float() - want[0].float()).abs().max())
+        abs_g = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], want[1:]))
+        out[kind] = (errs, abs_f, abs_g)
+        del got, want, args
+    print(f"check: {name} {label} q {tuple(q.shape)} k {tuple(k.shape)} {str(q.dtype)[6:]}: " + "; ".join(
+        f"{kind} ({limits[kind].text}) forward {e[0]:.3e} (tol {limits[kind].fwd}), dq/dk/dv {' / '.join(f'{x:.3e}' for x in e[1:])} "
+        f"(tol {limits[kind].grad}); max |err| forward {af:.3e}, gradients {ag:.3e}" for kind, (e, af, ag) in out.items()))
+    if failed:
+        raise SystemExit(f"kernel {name} ({label}): " + "; ".join(failed))
+    last = out[casts[-1][0]]
+    return last[1], last[2]
 
 
-def check_g_determinism(q, k, v, dout, label: str) -> None:
-    """Kernel G's backward twice on the same inputs: dq, dk and dv bit-equal."""
+def check_attention_determinism(call, name: str, q, k, v, dout, label: str) -> None:
+    """An attention kernel's backward twice on the same inputs: dq, dk and dv
+    bit-equal."""
     import torch
 
-    from prosody_control_french_tts_tpu_torch.ops import vmem_attn
-
     scale = float(q.shape[-1] ** -0.5)
-    first = attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, scale)
-    second = attn_grads(vmem_attn.causal_attention_vmem, q, k, v, dout, scale)
+    first = attn_grads(call, q, k, v, dout, scale)
+    second = attn_grads(call, q, k, v, dout, scale)
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(first[1:], second[1:])]
-    print(f"check: vmem_attn {label} {str(q.dtype)[6:]} backward twice: dq, dk, dv bit-equal {same}")
+    print(f"check: {name} {label} {str(q.dtype)[6:]} backward twice: dq, dk, dv bit-equal {same}")
     if not all(same):
-        raise SystemExit(f"kernel G backward ({label}) is not deterministic: {same}")
+        raise SystemExit(f"kernel {name} backward ({label}) is not deterministic: {same}")
 
 
 def check_h_determinism(h, w, tgt, g, label: str) -> None:
@@ -1480,8 +1660,8 @@ def edge_shape_checks(seed: int) -> None:
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()  # noqa: E731
     for B, L, H, KV, hd, dtype in ((3, 128, 6, 6, 128, torch.float32), (2, 128, 8, 1, 64, torch.bfloat16), (1, 512, 14, 2, 64, torch.float32)):
-        check_kernel_g(mk(B, L, H, hd).to(dtype), mk(B, L, KV, hd).to(dtype), mk(B, L, KV, hd).to(dtype), mk(B, L, H, hd).to(dtype),
-                       f"edge B {B} L {L} H {H} KV {KV} hd {hd}")
+        check_attention_kernel(vmem_call, vmem_plain, "vmem_attn", mk(B, L, H, hd).to(dtype), mk(B, L, KV, hd).to(dtype),
+                               mk(B, L, KV, hd).to(dtype), mk(B, L, H, hd).to(dtype), f"edge B {B} L {L} H {H} KV {KV} hd {hd}", G_LIMITS)
     for N, D, V, spread in ((300, 256, 1024, 1.0), (515, 384, 9216, 1.0), (8, 128, 512, 1.0), (300, 256, 1024, 12.0)):
         h = mk(N, D) * 0.3 * spread
         w = mk(D, V) * 0.05 * spread
@@ -1637,6 +1817,43 @@ def time_kernel_g(q, k, v, dout) -> dict:
     return out
 
 
+def time_kernel_fa(q, k, v, dout) -> dict:
+    """The flash attention, its plain version and scaled_dot_product_attention
+    (is_causal) on the same [B, H, L, hd] tensors, forward and backward, on a
+    captured layer's tensors, L2 cold (enough copies to exceed the 50 MB
+    cache). Work: 4 hd operations per (query, key) pair at or below the
+    diagonal forward, 10 hd backward; bytes: q, k, v read and o, l, m written
+    forward, q, k, v, o, do, l, m read and dq, dk, dv written backward."""
+    import torch.nn.functional as F
+
+    B, H, L, hd = q.shape
+    item = q.element_size()
+    fn, plain_fn = flash_call, flash_plain
+    scale = float(hd**-0.5)
+    one = 4 * q.numel() * item
+    sets = [tuple(t.clone() for t in (q, k, v, dout)) for _ in range(max(2, int(120e6 // one) + 1))]
+
+    def with_fn(f):
+        def make_call(inputs, grad):
+            qq, kk, vv, dd = inputs
+            if grad:
+                qq, kk, vv = (t.detach().requires_grad_(True) for t in (qq, kk, vv))
+            return f(qq, kk, vv), dd, (qq, kk, vv)
+
+        return make_call
+
+    ms = fwd_bwd_ms(with_fn(lambda a, b, c: fn(a, b, c, scale)), sets, reps=12)
+    plain = fwd_bwd_ms(with_fn(lambda a, b, c: plain_fn(a, b, c, scale)), sets, reps=2)
+    lib = fwd_bwd_ms(with_fn(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True)), sets, reps=12)
+    pairs = B * H * L * (L + 1) // 2
+    stat = B * H * L * 4
+    work = {"fwd": (2 * 2 * hd * pairs, 4 * q.numel() * item + 2 * stat),
+            "bwd": (5 * 2 * hd * pairs, 8 * q.numel() * item + 2 * stat)}
+    out = kernel_time_rows(ms, plain, lib, work, PEAK_FLOPS["bf16" if item == 2 else "f32"])
+    out["shape"] = dict(B=B, H=H, L=L, hd=hd, dtype=str(q.dtype)[6:])
+    return out
+
+
 def time_kernel_h(h, w, tgt, g) -> dict:
     """Kernel H, its plain version and F.cross_entropy of the dense logits,
     forward and backward (dh only), on the captured final hidden state. W is
@@ -1670,9 +1887,52 @@ def time_kernel_h(h, w, tgt, g) -> dict:
     return out
 
 
+def flash_phase(args, card: str, free) -> tuple:
+    """Phase 14 of the module docstring: the long-sequence LoRA trainers with
+    attn_impl="flash", the loss-curve parity at L 256, the flash attention
+    against its plain version on the 7B step's tensors and its times. Returns
+    (the rows of its forward and backward for the ``kernels`` line, the
+    trainers' step-split functions, their stats)."""
+    import dataclasses
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+
+    cfg7 = dataclasses.replace(llm.LLMConfig.qwen25_7b(), attn_impl="flash", fused_qkv=True, lora_rank=8)
+    counts7, cap7, stats7, split7 = run_trainer("7B L 1024 flash", cfg7, 2, 1024, args.seed + 3, card, scan=False, dot_peak=True)
+    free()
+    bcfg = llm.LLMConfig(vocab_size=32768, dim=896, layers=12, heads=14, kv_heads=2, ffn=2432, max_len=768, lora_rank=8,
+                         attn_impl="flash", fused_qkv=True)
+    countsb, capb, statsb, splitb = run_trainer("bench geometry L 768 flash", bcfg, 8, 768, args.seed + 4, card, scan=True)
+    free()
+    parity_on_card(args.seed, "flash", 256)
+
+    errs, times = {}, {}
+    for label, cap in (("7B L 1024", cap7), ("bench geometry L 768", capb)):
+        errs[label] = check_attention_kernel(flash_call, flash_plain, "flash_attention", cap["q"], cap["k"], cap["v"], cap["dout"], label,
+                                             FA_LIMITS)
+        free()
+    check_attention_determinism(flash_call, "flash_attention", cap7["q"], cap7["k"], cap7["v"], cap7["dout"], "7B L 1024")
+    for label, cap in (("7B L 1024", cap7), ("bench geometry L 768", capb)):
+        times[label] = time_kernel_fa(cap["q"], cap["k"], cap["v"], cap["dout"])
+        free()
+    rows = []
+    for spec, i, direction in ((KERNEL_FA_FWD, 0, "fwd"), (KERNEL_FA_BWD, 1, "bwd")):
+        t7, tb = times["7B L 1024"], times["bench geometry L 768"]
+        rows.append(dict(spec, launches=counts7[spec["name"]], max_abs_err=errs["7B L 1024"][i],
+                         **{k: t7[direction][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, check="pass", shape=t7["shape"],
+                         bench_geometry=dict(tb[direction], shape=tb["shape"], launches=countsb[spec["name"]], max_abs_err=errs["bench geometry L 768"][i])))
+        for label, t, n in (("7B L 1024", t7, counts7[spec["name"]]), ("bench geometry L 768", tb, countsb[spec["name"]])):
+            d = t[direction]
+            print(f"kernel {spec['name']} ({label} {json.dumps(t['shape'])}): ms={d['ms']:.4f} launches={n} bound_ms={d['bound_ms']:.5f} "
+                  f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f} "
+                  f"(SDPA is_causal) card={card}")
+    return rows, (split7, splitb), (stats7, statsb)
+
+
 def train_phases(args, card: str) -> list:
-    """Phases 11-13 of the module docstring. Returns the rows of G forward, G
-    backward, H forward and H backward for the ``kernels`` line."""
+    """Phases 11-14 of the module docstring. Returns the rows of G forward, G
+    backward, H forward, H backward and the flash attention's forward and
+    backward for the ``kernels`` line."""
     import dataclasses
     import gc
 
@@ -1700,12 +1960,12 @@ def train_phases(args, card: str) -> list:
     # -- 13. kernels against their plain versions, and their times ---------------
     errs = {}
     for label, cap in (("7B geometry", cap7), ("bench geometry", capb)):
-        g_err = check_kernel_g(cap["q"], cap["k"], cap["v"], cap["dout"], label)
+        g_err = check_attention_kernel(vmem_call, vmem_plain, "vmem_attn", cap["q"], cap["k"], cap["v"], cap["dout"], label, G_LIMITS)
         h_err = check_kernel_h(cap["h"], cap["w"], cap["tgt"], cap["g"], label + " bf16", TOL_H_WIDE, TOL_H_GRAD_BF16)
         check_kernel_h(cap["h"].float(), cap["w"].float(), cap["tgt"], cap["g"], label + " upcast to float32", TOL_H_WIDE, TOL_H_GRAD_WIDE)
         free()
         errs[label] = (g_err, h_err)
-    check_g_determinism(cap7["q"], cap7["k"], cap7["v"], cap7["dout"], "7B geometry")
+    check_attention_determinism(vmem_call, "vmem_attn", cap7["q"], cap7["k"], cap7["v"], cap7["dout"], "7B geometry")
     check_h_determinism(cap7["h"], cap7["w"], cap7["tgt"], cap7["g"], "7B geometry")
     edge_shape_checks(args.seed)
     h_peak_allocation(cap7["h"], cap7["w"], cap7["tgt"], cap7["g"])
@@ -1728,12 +1988,20 @@ def train_phases(args, card: str) -> list:
             before = f" (PERF.md's {design} design: {was} ms, {was / d['ms']:.1f}x this run's time)"
             print(f"kernel {spec['name']} ({label} {json.dumps(t['shape'])}): ms={d['ms']:.4f} launches={n} bound_ms={d['bound_ms']:.5f} "
                   f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f}{before} card={card}")
-    split7()
-    splitb()
-    del split7, splitb
+
+    # -- 14. long-sequence training with the flash attention ------------------
+    fa_rows, fa_splits, (stats7f, statsbf) = flash_phase(args, card, free)
+    rows.extend(fa_rows)
+
+    for split in (split7, splitb, *fa_splits):
+        split()
+    del split7, splitb, fa_splits
     free()
     print(f"train summary: 7B {stats7['warm_ms']:.1f} ms per step, {stats7['tokens_per_s']:.1f} tokens/s, peak {stats7['peak_gb']:.2f} GB; "
-          f"bench geometry {statsb['warm_ms']:.1f} ms per step, {statsb['tokens_per_s']:.1f} tokens/s, peak {statsb['peak_gb']:.2f} GB; card={card}")
+          f"bench geometry {statsb['warm_ms']:.1f} ms per step, {statsb['tokens_per_s']:.1f} tokens/s, peak {statsb['peak_gb']:.2f} GB; "
+          f"7B L 1024 flash {stats7f['warm_ms']:.1f} ms per step, {stats7f['tokens_per_s']:.1f} tokens/s, peak {stats7f['peak_gb']:.2f} GB "
+          f"(dot path {stats7f['dot_peak_gb']:.2f} GB); bench geometry L 768 flash {statsbf['warm_ms']:.1f} ms per step, "
+          f"{statsbf['tokens_per_s']:.1f} tokens/s, peak {statsbf['peak_gb']:.2f} GB; card={card}")
     return rows
 
 

@@ -12,9 +12,10 @@ Two layouts, as in the JAX package:
 - the **training layout**, :class:`DecoderLM`: separate q/k/v/o/gate/up/down
   ``LoRALinear`` projections with float32, bfloat16 (frozen) or quantized
   base kernels stored ``[in, out]``, KV caches ``[B, S, kv_heads, hd]``; the
-  training step over it is ``models.training``, its attention at short
-  sequence lengths ``ops.vmem_attn`` and its loss ``ops.fused_ce`` (hand-
-  written CUDA kernels on the card, forward and backward);
+  training step over it is ``models.training``, its attention
+  ``ops.vmem_attn`` at short sequence lengths or ``ops.flash_attention`` at
+  any length, and its loss ``ops.fused_ce`` (hand-written CUDA kernels on
+  the card, forward and backward);
 - the **serving layout**, :func:`fuse_decode_params`: LoRA folded into the
   base, q|k|v and gate|up concatenated, everything bfloat16 (optionally an
   int8 weight stream, :func:`quantize_fused_decode_params`), KV caches packed
@@ -35,7 +36,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
-from ..ops import decode_attn, fused_ce, vmem_attn
+from ..ops import decode_attn, flash_attention, fused_ce, vmem_attn
 from ..ops.kernels import dsp_precision, resolve_device
 from .lora import LoRALinear, lecun_normal_
 
@@ -59,9 +60,12 @@ class LLMConfig:
     quant: str | None = None
     # training-path attention: "dot" (mask + softmax with the [B, H, L, L]
     # score tensor in device memory) | "vmem" (ops.vmem_attn: score rows stay
-    # on chip, forward and backward). "vmem" applies only to the pure causal
-    # no-cache shape with L a multiple of 128 up to vmem_attn.MAX_L; decode and
-    # padded-mask calls use "dot".
+    # on chip, forward and backward; L a multiple of 128 up to
+    # vmem_attn.MAX_L) | "flash" (ops.flash_attention, the counterpart of the
+    # upstream Pallas TPU flash-attention op: K/V tiles streamed with an
+    # online softmax, forward and backward; any L that is a positive multiple
+    # of 128, K/V repeated to all heads). Both apply only to the pure causal
+    # no-cache shape; decode, padded-mask calls and other L use "dot".
     attn_impl: str = "dot"
     # q|k|v and gate|up as ONE matmul each at apply time (LoRA adapters ride
     # along as [A_q|A_k|A_v] and a block-diagonal B): fewer launches, x read
@@ -75,13 +79,8 @@ class LLMConfig:
     remat_policy: str | None = None
 
     def __post_init__(self):
-        if self.attn_impl == "flash":
-            raise NotImplementedError(
-                "LLMConfig.attn_impl='flash' is the upstream Pallas TPU flash-attention op, not one of this "
-                "repository's kernels, and has no port: use 'vmem' or 'dot'"
-            )
-        if self.attn_impl not in ("dot", "vmem"):
-            raise ValueError(f"LLMConfig.attn_impl={self.attn_impl!r}: expected 'dot' or 'vmem'")
+        if self.attn_impl not in ("dot", "vmem", "flash"):
+            raise ValueError(f"LLMConfig.attn_impl={self.attn_impl!r}: expected 'dot', 'vmem' or 'flash'")
         if self.remat_policy not in (None, "dots"):
             raise ValueError(f"LLMConfig.remat_policy={self.remat_policy!r}: expected None or 'dots'")
 
@@ -136,6 +135,16 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_pos: int) -> None
     if cache_pos < 0 or cache_pos + L > S:
         raise ValueError(f"cache write of {L} rows at {cache_pos} runs past the cache's {S} rows")
     cache[:, cache_pos : cache_pos + L] = new.to(cache.dtype)
+
+
+def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
+    """[B, L, KVH, hd] → [B, KVH·group, L, hd], the flash attention's layout,
+    each KV head repeated ``group`` times in place (head h reads KV head
+    h // group): ``jnp.repeat``'s head order, then heads before L. Written as
+    transpose + expand + reshape, one copy, so its backward sums over the
+    expanded axis: the same bits every run, where an index-add would not be."""
+    B, L, KVH, hd = x.shape
+    return x.transpose(1, 2)[:, :, None].expand(B, KVH, group, L, hd).reshape(B, KVH * group, L, hd)
 
 
 def _masked_attention(q, k, v, mask, kv_heads: int) -> torch.Tensor:
@@ -219,7 +228,17 @@ class Attention(nn.Module):
             _write_cache(cv, v, cache_pos)
             k, v = ck, cv
             new_cache = (ck, cv)
-        if mask is None:
+        if mask is None and c.attn_impl == "flash":
+            # pure-causal training shape, L a multiple of 128 (DecoderLM.forward
+            # decides): ops.flash_attention on [B, H, L, hd] with K/V repeated
+            # to all heads, no [B, H, L, L] tensor forward or backward
+            group = c.heads // c.kv_heads
+            out = flash_attention.flash_attention(
+                q.transpose(1, 2), repeat_kv(k, group), repeat_kv(v, group),
+                causal=True, sm_scale=float(1.0 / math.sqrt(hd)),
+            )
+            out = out.transpose(1, 2).reshape(B, L, c.heads * hd)
+        elif mask is None:
             # pure-causal training shape, short L (DecoderLM.forward decides):
             # ops.vmem_attn, no [B, H, L, L] tensor forward or backward
             out = vmem_attn.causal_attention_vmem(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, c.heads * hd)
@@ -344,12 +363,15 @@ class DecoderLM(nn.Module):
             positions = torch.arange(L, device=dev).expand(B, L)
         x = self.embed.embedding[ids].to(c.dtype)
         if kv_caches is None:
-            # "vmem" keeps whole score rows on chip: bounded to MAX_L, and to
-            # the 128-multiples the TPU kernel takes; other shapes and padded
-            # masks take the dot path
-            kernel_ok = c.attn_impl == "vmem" and L % 128 == 0 and L <= vmem_attn.MAX_L
+            # the flash kernels' tiles are 128-wide: short shapes take the dot
+            # path; "vmem" keeps whole score rows on chip, bounded to MAX_L, and
+            # to the 128-multiples the TPU kernel takes; padded masks take the
+            # dot path
+            kernel_ok = (c.attn_impl == "flash" and L >= 128 and L % 128 == 0) or (
+                c.attn_impl == "vmem" and L % 128 == 0 and L <= vmem_attn.MAX_L
+            )
             if kernel_ok and attn_mask is None:
-                mask = None  # Attention routes mask=None to ops.vmem_attn
+                mask = None  # Attention routes mask=None to ops.flash_attention or ops.vmem_attn
             else:
                 mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None, :, :]
                 if attn_mask is not None:

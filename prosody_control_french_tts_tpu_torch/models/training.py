@@ -10,9 +10,10 @@ no optimizer state. Integer leaves (quantized base kernels, ``models.quant``)
 are buffers and ride along as constants: a LoRA step over an ``int8b`` or
 ``nf4`` base is the QLoRA shape.
 
-On the card the step's attention (``cfg.attn_impl="vmem"``) and loss
-(``loss_impl`` fused) are the hand-written CUDA kernels of ``ops.vmem_attn``
-and ``ops.fused_ce``, forward and backward.
+On the card the step's attention (``cfg.attn_impl="vmem"`` up to L 512,
+``"flash"`` at any L that is a multiple of 128) and loss (``loss_impl``
+fused) are the hand-written CUDA kernels of ``ops.vmem_attn`` or
+``ops.flash_attention`` and of ``ops.fused_ce``, forward and backward.
 
 Not here: ``shard_train_inputs`` of the JAX package (it waits for the port of
 ``parallel/*``).

@@ -11,8 +11,8 @@ parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
 ``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn``, ``ops.fused_ce``,
-``ops.frames`` and ``ops.chunk_cumsum`` take their plain PyTorch versions only for tensors on
-the CPU, and call :func:`library` only for CUDA tensors — a failed build
+``ops.frames``, ``ops.chunk_cumsum`` and ``ops.flash_attention`` take their
+plain PyTorch versions only for tensors on the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
 
@@ -31,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 SOURCES = (
     "pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu",
-    "frames.cu", "chunk_cumsum.cu",
+    "frames.cu", "chunk_cumsum.cu", "flash_attention.cu",
 )
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
@@ -82,6 +82,12 @@ _SIGNATURES = {
     "frames_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
     # x, out, R, C, stream
     "chunk_cumsum_launch": (_VP, _VP, _I, _I, _VP),
+    # q, k, v, o, l, m, B, H, L, hd, scale, dtype, stream
+    "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP),
+    # q, k, v, o, do, l, m, di, dq, dk, dv, B, H, L, hd, scale, dtype, stream
+    "flash_attn_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP),
+    # kernel (0 forward, 1 dq, 2 dk/dv), hd, dtype (0 float32, 1 bfloat16) -> bytes of dynamic shared memory
+    "flash_attn_smem_bytes": (_I, _I, _I),
 }
 
 

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, decode_attn, frames, fused_ce, viterbi, vmem_attn
+from prosody_control_french_tts_tpu_torch.ops import (
+    candidates, chunk_cumsum, decode_attn, flash_attention, frames, fused_ce, viterbi, vmem_attn,
+)
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
 
@@ -363,6 +365,128 @@ def test_vmem_attn_kernel_is_causal_and_counts(cuda):
         big = torch.zeros((1, 640, 4, 64), device=cuda)
         vmem_attn.causal_attention_vmem(big, big[:, :, :2], big[:, :, :2], 0.125)
     assert (vmem_attn.launches, vmem_attn.launches_bwd) == (n_f + 3, n_b + 1)
+
+
+def flash_inputs(B, H, L, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, H, L, hd)).astype(np.float32)).to(device, dtype) for _ in range(4)]
+
+
+def _flash(q, k, v, scale):
+    return flash_attention.flash_attention(q, k, v, sm_scale=scale)
+
+
+def _flash_plain(q, k, v, scale):
+    return flash_attention.flash_attention_plain(q, k, v, scale)
+
+
+FLASH_GEOMS = [
+    (1, 3, 128, 64),  # one tile: the upstream single-step shape; B·H odd
+    (3, 1, 768, 64),  # the bench geometry's L: 12 tiles of 64, not a power of two
+    (1, 5, 1024, 128),  # stage A's L at the 7B head dim
+    (1, 3, 2048, 128),  # twice stage A's L
+    (2, 7, 384, 128),
+]
+
+
+def _row_err(got, want, floor=1e-3):
+    """The largest row error over its scale: |got - want| / (|want| + floor *
+    the largest |want|), |.| the 2-norm of a row of hd values."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    n = want.float().norm(dim=-1)
+    return float((d / (n + floor * n.max()).clamp_min(1e-30)).max())
+
+
+def _err_over_plain(got, want, ref):
+    """The largest over (b, h) of |got - ref| / |want - ref|, |.| the 2-norm
+    over L x hd: the kernel's error against the float32 reference over the
+    plain version's own."""
+    d = (got.float() - ref).flatten(2).norm(dim=-1)
+    n = (want.float() - ref).flatten(2).norm(dim=-1)
+    return float((d / n.clamp_min(1e-30)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", FLASH_GEOMS)
+def test_flash_attention_kernel_matches_plain(cuda, geom, dtype):
+    """On the card. bfloat16 (tensor cores): the output within 2^-6 row by
+    row (``_row_err``): p is rounded against the running max of 64-key tiles,
+    not of the plain version's 128-key tiles, and the output rounds once more,
+    each about 2^-9 relative and independent over the keys, so a row's error
+    is a fixed share of the row at any L; a key tile dropped from a row of n
+    keys moves it by about 8 / sqrt(n) (0.18 at n 2,048). dq, dk, dv: their
+    error against the plain version in float32 on the same inputs at most
+    twice the plain bf16 version's own, per (b, h) (``_err_over_plain``; the
+    roundings of di and ds make dq's error a large share of dq where keys
+    share a large part, in both versions). float32 (CUDA cores), kernel G's
+    limits: the forward within 2e-5 and dq/dk/dv within 1e-5 of the plain
+    gradient's largest element (sum order and expf only; 2e-5 is 2.5e3 times
+    below a row's |o| at L 1,024, and dq's first rows are near zero by
+    cancellation, so a row measure would read float32's rounding there)."""
+    B, H, L, hd = geom
+    q, k, v, dout = flash_inputs(B, H, L, hd, dtype, cuda, seed=L + hd)
+    scale = hd**-0.5
+    got = _attn_grads(_flash, q, k, v, dout, scale)
+    torch.cuda.synchronize()
+    want = _attn_grads(_flash_plain, q, k, v, dout, scale)
+    ref = _attn_grads(_flash_plain, q.float(), k.float(), v.float(), dout.float(), scale)
+    assert got[0].dtype == dtype and bool(torch.isfinite(got[0]).all())
+    if dtype == torch.bfloat16:
+        assert _row_err(got[0], want[0]) <= 2**-6
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-5)
+    for g, w, r in zip(got[1:], want[1:], ref[1:]):
+        assert g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all())
+        if dtype == torch.bfloat16:
+            assert _err_over_plain(g, w, r) <= 2.0
+        else:
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [(2, 28, 1024, 128), (1, 3, 768, 64)])
+def test_flash_attention_backward_is_deterministic(cuda, geom, dtype):
+    """Two backward runs on the same inputs give bit-equal dq, dk and dv: dq by
+    query tile and dk/dv by key tile, no atomics."""
+    B, H, L, hd = geom
+    q, k, v, dout = flash_inputs(B, H, L, hd, dtype, cuda, seed=3)
+    first = _attn_grads(_flash, q, k, v, dout, hd**-0.5)
+    second = _attn_grads(_flash, q, k, v, dout, hd**-0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_is_causal_counts_and_checks(cuda):
+    """Changing the last 128 keys and values leaves every earlier output row
+    bit-equal; each forward and each backward adds one to its own count; what
+    the kernel does not take (hd 32, L not a multiple of 128, float16, mixed
+    dtypes or devices) raises and counts nothing."""
+    q, k, v, dout = flash_inputs(2, 3, 384, 64, torch.bfloat16, cuda, seed=5)
+    n_f, n_b = flash_attention.launches, flash_attention.launches_bwd
+    out0 = _flash(q, k, v, 0.125)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, -128:] += 3.0
+    v2[:, :, -128:] -= 2.0
+    out1 = _flash(q, k2, v2, 0.125)
+    assert torch.equal(out0[:, :, :256], out1[:, :, :256])
+    assert float((out0[:, :, -1] - out1[:, :, -1]).float().abs().max()) > 1e-2
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (n_f + 2, n_b)
+    _attn_grads(_flash, q, k, v, dout, 0.125)
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (n_f + 3, n_b + 1)
+    with pytest.raises(ValueError, match="head dim"):
+        _flash(q[..., :32], k[..., :32], v[..., :32], 0.125)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        _flash(q[:, :, :320], k[:, :, :320], v[:, :, :320], 0.125)
+    with pytest.raises(TypeError):
+        _flash(q.half(), k.half(), v.half(), 0.125)
+    with pytest.raises(TypeError):
+        _flash(q, k.float(), v, 0.125)
+    with pytest.raises(ValueError, match="is on"):
+        _flash(q, k.cpu(), v, 0.125)
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (n_f + 3, n_b + 1)
 
 
 def fused_ce_inputs(N, D, V, dtype, device, seed=1, spread=1.0):

@@ -194,13 +194,10 @@ def test_config_presets_equal():
 
 @pytest.mark.parametrize("field,value", [("attn_impl", "vmem"), ("attn_impl", "flash"), ("fused_qkv", True), ("remat", True), ("remat_policy", "dots")])
 def test_config_refuses_training_knobs(field, value):
-    """Only the upstream flash op stays refused (it is none of the repo's
-    kernels); the other training knobs are ported and construct."""
-    if (field, value) == ("attn_impl", "flash"):
-        with pytest.raises(NotImplementedError, match="flash"):
-            tllm.LLMConfig(**{field: value})
-    else:
-        assert getattr(tllm.LLMConfig(**{field: value}), field) == value
+    """Every training knob of the JAX config is ported and constructs with its
+    value kept, the upstream flash op's counterpart included; values that no
+    side knows are refused."""
+    assert getattr(tllm.LLMConfig(**{field: value}), field) == value
     with pytest.raises(ValueError):
         tllm.LLMConfig(attn_impl="sdpa")
     with pytest.raises(ValueError):
