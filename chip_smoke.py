@@ -75,18 +75,22 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
     logits), forward and backward, as replays of CUDA graphs between CUDA
     events;
 14. trains at the cascade's real lengths with ``attn_impl="flash"`` (the
-    counterpart of the upstream Pallas TPU flash-attention op, K/V repeated
-    to all heads): ``qwen25_7b`` at full width and depth, B 2, L 1024 (stage
-    A's length), and the bench geometry at B 8, L 768 (stage B's), with the
-    flash attention counted layers x steps forward and backward, kernel G and
-    the dot path never; prints the 7B step's peak memory beside one step of
-    the dot path on the same model; holds ("flash", "fused") against ("dot",
-    "dense") on the card and the CPU at L 256; holds the flash attention
-    against its plain version on the captured 7B and bench tensors (bf16 and
-    upcast to float32, at ``FA_LIMITS``), shows its bf16 backward gives the
-    same bits twice at the 7B shape, and times it beside its plain version
-    and ``scaled_dot_product_attention(is_causal=True)`` as CUDA-graph
-    replays. The trainers' step splits (torch.profiler) come last of all.
+    counterpart of the upstream Pallas TPU flash-attention op, reading the
+    model's q and its grouped K/V in place through ``flash_attention_gqa``):
+    ``qwen25_7b`` at full width and depth, B 2, L 1024 (stage A's length),
+    and the bench geometry at B 8, L 768 (stage B's), with the flash
+    attention counted layers x steps forward and backward, kernel G, the dot
+    path and the K/V repeat never; prints the 7B step's peak memory beside
+    one step of the dot path on the same model; holds ("flash", "fused")
+    against ("dot", "dense") on the card and the CPU at L 256; holds the
+    flash attention against its plain version (the K/V repeat, the
+    transposes and the upstream op's plain recurrence) on the captured 7B and
+    bench tensors (bf16 and upcast to float32, at ``FA_LIMITS``: forward and
+    dq per (b, head), dk and dv per (b, KV head)), shows its bf16 backward
+    gives the same bits twice at the 7B shape, and times it beside its plain
+    version and ``scaled_dot_product_attention(is_causal=True)`` on K/V
+    repeated to all heads in [B, H, L, hd] as CUDA-graph replays. The
+    trainers' step splits (torch.profiler) come last of all.
 
 While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
 ``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu``,
@@ -158,7 +162,9 @@ TOL_PARITY = 5e-4  # loss curves, relative
 # versions (a row measure read 0.19 on the 7B step's tensors), so the kernel
 # is held to the plain version's accuracy, not to dq's size. The two errors
 # come from the same rounding points, in other tiles. Float32 is held to G's
-# float32 limits, 2.5e3 times below a long row's |o|.
+# float32 limits, 2.5e3 times below a long row's |o|. The tensors are in the
+# model's layout [B, L, heads, hd]: per (b, head) is per query head for the
+# forward and dq, per KV head for dk and dv.
 TOL_FA_BF16 = 2**-6  # forward, row by row
 TOL_FA_GRAD_BF16 = 2.0  # dq, dk, dv: error over the plain version's error
 FA_FLOOR = 1e-3
@@ -171,6 +177,11 @@ G_PREVIOUS_MS = {"fwd": (0.4496, 0.3040), "bwd": (2.191, 1.404)}
 # that the wgmma kernels replaced, likewise from PERF.md section 6 (H100 80GB
 # HBM3 at 700 W): printed beside the kernel lines only.
 H_PREVIOUS_MS = {"fwd": (19.90, 2.176), "bwd": (28.18, 3.281)}
+# the flash attention's bfloat16 times (ms; 7B shape, bench shape) of the
+# mma.sync design on [B, H, L, hd] with K/V repeated that the wgmma kernels
+# replaced, likewise from PERF.md section 6 (H100 80GB HBM3 at 700 W): printed
+# beside the kernel lines only.
+FA_PREVIOUS_MS = {"fwd": (0.0881, 0.0556), "bwd": (0.3646, 0.2311)}
 # kernel F's times (ms; 7B geometry, bench geometry) of the design with one
 # block per (b, KV head) that the clustered kernel replaced, and kernel B's (ms,
 # measure voice) of the one-warp design: PERF.md section 6, H100 80GB HBM3 at
@@ -364,7 +375,7 @@ def print_ptxas_report(procs, lib) -> None:
         bf16 = "bf16" in name
         row["dynamic_smem"] = lib.flash_attn_smem_bytes(0 if "fwd" in name else 1 if "dq" in name else 2,
                                                         int(re.search(r"<(\d+)>", name).group(1)), int(bf16))
-        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128 if bf16 else 256, row["dynamic_smem"])
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 384 if bf16 else 256, row["dynamic_smem"])
     print("ptxas: flash attention kernels: " + json.dumps(report))
 
 
@@ -1259,7 +1270,7 @@ def reset_train_counts() -> None:
 # attn_impl -> (module under ops, wrapper the model calls, forward and
 # backward count keys) of the attention kernel the training step runs
 ATTN_WRAPPERS = {"vmem": ("vmem_attn", "causal_attention_vmem", "vmem_attn_fwd", "vmem_attn_bwd"),
-                 "flash": ("flash_attention", "flash_attention", "flash_attn_fwd", "flash_attn_bwd")}
+                 "flash": ("flash_attention", "flash_attention_gqa", "flash_attn_fwd", "flash_attn_bwd")}
 
 
 def expected_train_counts(attn_impl: str, layers: int, steps: int) -> dict:
@@ -1290,8 +1301,12 @@ def profile_train_steps(run, steps: int) -> dict:
     wall_ms, by_name = profile_device(run)
     split = {"matmul": 0.0, "G_fwd": 0.0, "G_bwd": 0.0, "FA_fwd": 0.0, "FA_bwd": 0.0, "H_fwd": 0.0, "H_bwd": 0.0,
              "other_kernels": 0.0, "copies": 0.0}
+    fa_bwd = {"dq": 0.0, "dkv": 0.0, "group_sum": 0.0}  # FA_bwd by kernel
     for name, (ms, _) in by_name.items():
         low = name.lower()
+        for part, key in (("dq", "flash_dq"), ("dkv", "flash_dkv_bf16"), ("dkv", "flash_dkv_f32"), ("group_sum", "flash_dkv_group_sum")):
+            if key in low:
+                fa_bwd[part] += ms
         if "vmem_attn_fwd" in low:
             split["G_fwd"] += ms
         elif "vmem_attn_bwd" in low:
@@ -1318,6 +1333,7 @@ def profile_train_steps(run, steps: int) -> dict:
         "step_device_ms": device_ms / steps,
         "device_busy_share": device_ms / wall_ms,
         "per_step_ms": {k: v / steps for k, v in split.items()},
+        "fa_bwd_per_step_ms": {k: v / steps for k, v in fa_bwd.items()},
         # the split informs, it checks nothing: a profile without device records gives no shares
         "share_of_device": {k: v / device_ms for k, v in split.items()} if device_ms else None,
         "kernels_per_step": sum(n for _, n in by_name.values()) / steps,
@@ -1350,7 +1366,7 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
     import torch
 
     from prosody_control_french_tts_tpu_torch.models import llm, training
-    from prosody_control_french_tts_tpu_torch.ops import fused_ce
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention, fused_ce
 
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()  # an earlier trainer kept alive for its step split
@@ -1380,6 +1396,7 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
 
     reset_train_counts()
     cap_dot = Capture(llm, "_masked_attention", keep=1).__enter__()  # the dot path, counted over every step
+    cap_rep = Capture(flash_attention, "repeat_kv", keep=1).__enter__()  # the K/V repeat: the kernels read GQA in place
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [float(single(ids, mask))]  # the warm step (kernels' first launches, cuBLAS plans)
@@ -1396,8 +1413,9 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     cap_dot.__exit__()
-    counts = dict(train_counts(), dot_attention=cap_dot.count)
-    want = dict(expected_train_counts(cfg.attn_impl, cfg.layers, n_steps), dot_attention=0)
+    cap_rep.__exit__()
+    counts = dict(train_counts(), dot_attention=cap_dot.count, repeat_kv=cap_rep.count)
+    want = dict(expected_train_counts(cfg.attn_impl, cfg.layers, n_steps), dot_attention=0, repeat_kv=0)
     print(f"train {label} main path launches: {json.dumps(counts)} (expected {json.dumps(want)})")
     if counts != want:
         raise SystemExit(f"train {label}: launch counts {counts}, expected {want}")
@@ -1495,14 +1513,16 @@ def g_measure(got, want, ref, grad: bool) -> float:
 
 
 def fa_measure(got, want, ref, grad: bool) -> float:
-    """The flash attention's bfloat16 measure on [B, H, L, hd]. Forward: the
-    largest row error over its scale, |got - plain| / (|plain| + FA_FLOOR *
-    the largest |plain|), |.| the 2-norm of a row of hd values. Gradients: the
-    largest over (b, h) of |got - ref| / |plain - ref|, ``ref`` the plain
-    version in float32 on the upcast inputs, |.| the 2-norm over L x hd."""
+    """The flash attention's bfloat16 measure on the model's layout
+    [B, L, heads, hd]. Forward: the largest row error over its scale,
+    |got - plain| / (|plain| + FA_FLOOR * the largest |plain|), |.| the 2-norm
+    of a row of hd values. Gradients: the largest over (b, head) of
+    |got - ref| / |plain - ref|, ``ref`` the plain version in float32 on the
+    upcast inputs, |.| the 2-norm over L x hd (heads are query heads for dq,
+    KV heads for dk and dv)."""
     if grad:
-        d = (got.float() - ref).flatten(2).norm(dim=-1)
-        n = (want.float() - ref).flatten(2).norm(dim=-1)
+        d = (got.float() - ref).transpose(1, 2).flatten(2).norm(dim=-1)
+        n = (want.float() - ref).transpose(1, 2).flatten(2).norm(dim=-1)
         return float((d / n.clamp_min(1e-30)).max())
     d = (got.float() - want.float()).norm(dim=-1)
     n = want.float().norm(dim=-1)
@@ -1539,13 +1559,13 @@ def vmem_plain(q, k, v, scale):
 def flash_call(q, k, v, scale):
     from prosody_control_french_tts_tpu_torch.ops import flash_attention
 
-    return flash_attention.flash_attention(q, k, v, sm_scale=scale)
+    return flash_attention.flash_attention_gqa(q, k, v, scale)
 
 
 def flash_plain(q, k, v, scale):
     from prosody_control_french_tts_tpu_torch.ops import flash_attention
 
-    return flash_attention.flash_attention_plain(q, k, v, scale)
+    return flash_attention.flash_attention_gqa_plain(q, k, v, scale)
 
 
 def check_attention_kernel(call, plain, name: str, q, k, v, dout, label: str, limits: dict) -> tuple[float, float]:
@@ -1818,20 +1838,28 @@ def time_kernel_g(q, k, v, dout) -> dict:
 
 
 def time_kernel_fa(q, k, v, dout) -> dict:
-    """The flash attention, its plain version and scaled_dot_product_attention
-    (is_causal) on the same [B, H, L, hd] tensors, forward and backward, on a
-    captured layer's tensors, L2 cold (enough copies to exceed the 50 MB
-    cache). Work: 4 hd operations per (query, key) pair at or below the
-    diagonal forward, 10 hd backward; bytes: q, k, v read and o, l, m written
-    forward, q, k, v, o, do, l, m read and dq, dk, dv written backward."""
+    """The flash attention on a captured layer's own tensors in the model's
+    layout (q [B, L, H, hd], k, v [B, L, KVH, hd]), its plain version, and
+    scaled_dot_product_attention (is_causal) on [B, H, L, hd] with K/V
+    repeated to all heads (copies made before the timing, the yardstick of
+    PERF.md's earlier rows), forward and backward, L2 cold (enough copies to
+    exceed the 50 MB cache). Work: 4 hd operations per (query, key) pair at or
+    below the diagonal forward, 10 hd backward; bytes: q, k, v (at KVH heads)
+    read and o, l, m written forward; q, k, v, o, do, l, m read and dq, dk,
+    dv written backward."""
     import torch.nn.functional as F
 
-    B, H, L, hd = q.shape
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention
+
+    B, L, H, hd = q.shape
+    KVH = k.shape[2]
+    group = H // KVH
     item = q.element_size()
-    fn, plain_fn = flash_call, flash_plain
     scale = float(hd**-0.5)
-    one = 4 * q.numel() * item
+    one = (2 * q.numel() + 2 * k.numel()) * item
     sets = [tuple(t.clone() for t in (q, k, v, dout)) for _ in range(max(2, int(120e6 // one) + 1))]
+    lib_sets = [(a.transpose(1, 2).contiguous(), flash_attention.repeat_kv(b, group).contiguous(),
+                 flash_attention.repeat_kv(c, group).contiguous(), d.transpose(1, 2).contiguous()) for a, b, c, d in sets]
 
     def with_fn(f):
         def make_call(inputs, grad):
@@ -1842,15 +1870,16 @@ def time_kernel_fa(q, k, v, dout) -> dict:
 
         return make_call
 
-    ms = fwd_bwd_ms(with_fn(lambda a, b, c: fn(a, b, c, scale)), sets, reps=12)
-    plain = fwd_bwd_ms(with_fn(lambda a, b, c: plain_fn(a, b, c, scale)), sets, reps=2)
-    lib = fwd_bwd_ms(with_fn(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True)), sets, reps=12)
+    ms = fwd_bwd_ms(with_fn(lambda a, b, c: flash_call(a, b, c, scale)), sets, reps=12)
+    plain = fwd_bwd_ms(with_fn(lambda a, b, c: flash_plain(a, b, c, scale)), sets, reps=2)
+    lib = fwd_bwd_ms(with_fn(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True)), lib_sets, reps=12)
+    del lib_sets
     pairs = B * H * L * (L + 1) // 2
     stat = B * H * L * 4
-    work = {"fwd": (2 * 2 * hd * pairs, 4 * q.numel() * item + 2 * stat),
-            "bwd": (5 * 2 * hd * pairs, 8 * q.numel() * item + 2 * stat)}
+    work = {"fwd": (2 * 2 * hd * pairs, (2 * q.numel() + 2 * k.numel()) * item + 2 * stat),
+            "bwd": (5 * 2 * hd * pairs, (4 * q.numel() + 4 * k.numel()) * item + 2 * stat)}
     out = kernel_time_rows(ms, plain, lib, work, PEAK_FLOPS["bf16" if item == 2 else "f32"])
-    out["shape"] = dict(B=B, H=H, L=L, hd=hd, dtype=str(q.dtype)[6:])
+    out["shape"] = dict(B=B, L=L, H=H, kv_heads=KVH, hd=hd, dtype=str(q.dtype)[6:])
     return out
 
 
@@ -1921,11 +1950,13 @@ def flash_phase(args, card: str, free) -> tuple:
         rows.append(dict(spec, launches=counts7[spec["name"]], max_abs_err=errs["7B L 1024"][i],
                          **{k: t7[direction][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, check="pass", shape=t7["shape"],
                          bench_geometry=dict(tb[direction], shape=tb["shape"], launches=countsb[spec["name"]], max_abs_err=errs["bench geometry L 768"][i])))
-        for label, t, n in (("7B L 1024", t7, counts7[spec["name"]]), ("bench geometry L 768", tb, countsb[spec["name"]])):
+        prev = FA_PREVIOUS_MS[direction]
+        for label, t, n, was in (("7B L 1024", t7, counts7[spec["name"]], prev[0]), ("bench geometry L 768", tb, countsb[spec["name"]], prev[1])):
             d = t[direction]
             print(f"kernel {spec['name']} ({label} {json.dumps(t['shape'])}): ms={d['ms']:.4f} launches={n} bound_ms={d['bound_ms']:.5f} "
                   f"({d['bound_by']}: {d['bytes']} bytes, {d['flops']} flops) plain_ms={d['plain_ms']:.4f} library_ms={d['library_ms']:.4f} "
-                  f"(SDPA is_causal) card={card}")
+                  f"(SDPA is_causal, K/V repeated; {d['ms'] / d['library_ms']:.2f}x) (PERF.md's mma.sync design: {was} ms, "
+                  f"{was / d['ms']:.2f}x this run's time) card={card}")
     return rows, (split7, splitb), (stats7, statsb)
 
 

@@ -83,7 +83,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float kNeg = -1e30f;
 
@@ -347,74 +351,6 @@ __host__ __device__ constexpr int stage_bytes(int cols) { return A_BYTES + cols 
 // 1024 bytes to align the ring (128-byte swizzle atoms), the ring, its barriers
 __host__ __device__ constexpr int tc_smem_bytes(int cols) { return 1024 + STAGES * stage_bytes(cols) + 2 * STAGES * 8; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// A wait that outlasts kWaitCycles (seconds at any clock) means a copy or an
-// arrival was lost: trap, so that the launch fails instead of hanging.
-constexpr long long kWaitCycles = 20000000000ll;
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > kWaitCycles) __trap();
-  }
-}
-
-// box at (c0 innermost, c1) of a 2-D tensor map into shared memory, completion on bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands: rows of
-// 128 bytes, 8-row atoms 1024 bytes apart (stride byte offset; the leading
-// offset is unused). MN-major B: 64-column boxes `lbo` bytes apart (leading
-// byte offset), 8-row groups of the contraction 1024 bytes apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator registers while a wgmma is in flight
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (+)= A B for one m64nNk16 step; accumulate = 0 overwrites d
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
@@ -493,32 +429,6 @@ __device__ __forceinline__ void wgmma_n224(float (&d)[112], uint64_t da, uint64_
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
         "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
-}
-
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
@@ -827,44 +737,6 @@ fused_ce_dh_bf16_kernel(const __grid_constant__ CUtensorMap tm_coef, const __gri
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, looked up at run time so that
-// the library links without -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D bf16 view [outer][inner], rows row_bytes apart, read in boxes of
-// box_outer x box_inner with the 128-byte swizzle; out-of-bounds rows read as
-// zero. Returns 0 or a cudaError.
-int tensor_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
-               uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, step,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 int fwd_f32(const float* h, const float* w, const int* tgt, float* nll, float* lse, float* partials, int N, int D,
             int V, int splits, int tiles_per_split, cudaStream_t stream) {

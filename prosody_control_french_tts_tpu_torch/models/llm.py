@@ -137,16 +137,6 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_pos: int) -> None
     cache[:, cache_pos : cache_pos + L] = new.to(cache.dtype)
 
 
-def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
-    """[B, L, KVH, hd] → [B, KVH·group, L, hd], the flash attention's layout,
-    each KV head repeated ``group`` times in place (head h reads KV head
-    h // group): ``jnp.repeat``'s head order, then heads before L. Written as
-    transpose + expand + reshape, one copy, so its backward sums over the
-    expanded axis: the same bits every run, where an index-add would not be."""
-    B, L, KVH, hd = x.shape
-    return x.transpose(1, 2)[:, :, None].expand(B, KVH, group, L, hd).reshape(B, KVH * group, L, hd)
-
-
 def _masked_attention(q, k, v, mask, kv_heads: int) -> torch.Tensor:
     """GQA attention with a boolean mask [B or 1, L, K]: q [B, L, H, hd],
     k/v [B, K, kv_heads, hd] → [B, L, H·hd]. Scores are divided by √hd
@@ -230,14 +220,9 @@ class Attention(nn.Module):
             new_cache = (ck, cv)
         if mask is None and c.attn_impl == "flash":
             # pure-causal training shape, L a multiple of 128 (DecoderLM.forward
-            # decides): ops.flash_attention on [B, H, L, hd] with K/V repeated
-            # to all heads, no [B, H, L, L] tensor forward or backward
-            group = c.heads // c.kv_heads
-            out = flash_attention.flash_attention(
-                q.transpose(1, 2), repeat_kv(k, group), repeat_kv(v, group),
-                causal=True, sm_scale=float(1.0 / math.sqrt(hd)),
-            )
-            out = out.transpose(1, 2).reshape(B, L, c.heads * hd)
+            # decides): ops.flash_attention_gqa reads q and the GQA K/V in
+            # this layout, no [B, H, L, L] tensor forward or backward
+            out = flash_attention.flash_attention_gqa(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, c.heads * hd)
         elif mask is None:
             # pure-causal training shape, short L (DecoderLM.forward decides):
             # ops.vmem_attn, no [B, H, L, L] tensor forward or backward

@@ -5,8 +5,9 @@ The kernels have a plain C interface (pointers and the stream as
 with ``nvcc`` alone in seconds, without PyTorch's headers, and bind with
 ``ctypes``. The build runs at first use, from the sources in the checkout,
 into ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``); a content hash of the sources names the library, so an
-edited source is rebuilt. Each source compiles to its own object in
+``.gitignore``); a content hash of the sources and of the headers they
+share (``csrc/*.cuh``) names the library, so an edited source or header is
+rebuilt. Each source compiles to its own object in
 parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
@@ -82,10 +83,12 @@ _SIGNATURES = {
     "frames_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
     # x, out, R, C, stream
     "chunk_cumsum_launch": (_VP, _VP, _I, _I, _VP),
-    # q, k, v, o, l, m, B, H, L, hd, scale, dtype, stream
-    "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP),
-    # q, k, v, o, do, l, m, di, dq, dk, dv, B, H, L, hd, scale, dtype, stream
-    "flash_attn_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP),
+    # q, k, v, o, l, m, plan, n_plan, B, H, KVH, L, hd, strides (12 int64, host), scale, dtype, stream
+    "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
+    # q, k, v, o, do, l, m, di, lse2, dk_part, dv_part, dq, dk, dv, plan_q, plan_k, n_plan, B, H, KVH, L, hd,
+    # strides (24 int64, host), scale, dtype, stream
+    "flash_attn_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                              _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
     # kernel (0 forward, 1 dq, 2 dk/dv), hd, dtype (0 float32, 1 bfloat16) -> bytes of dynamic shared memory
     "flash_attn_smem_bytes": (_I, _I, _I),
 }
@@ -126,8 +129,8 @@ def build() -> Path:
     """Compile the kernels (if this source hash has no library yet) and
     return the library's path."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     tag = h.hexdigest()[:16]
     lib = BUILD_DIR / f"libpcft_kernels_{tag}.so"

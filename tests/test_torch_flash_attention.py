@@ -124,14 +124,101 @@ def test_repeat_kv_is_jnp_repeat_with_a_deterministic_group_sum():
     x = rng.standard_normal((2, 5, 3, 8)).astype(np.float32)
     g = rng.standard_normal((2, 12, 5, 8)).astype(np.float32)
     want = np.asarray(jnp.repeat(jnp.asarray(x), 4, axis=2)).transpose(0, 2, 1, 3)
-    assert np.array_equal(tllm.repeat_kv(torch.from_numpy(x), 4).numpy(), want)
+    assert np.array_equal(fa.repeat_kv(torch.from_numpy(x), 4).numpy(), want)
     grads = []
     for _ in range(2):
         t = torch.from_numpy(x).requires_grad_(True)
-        tllm.repeat_kv(t, 4).backward(torch.from_numpy(g))
+        fa.repeat_kv(t, 4).backward(torch.from_numpy(g))
         grads.append(t.grad)
     assert torch.equal(grads[0], grads[1])
     np.testing.assert_allclose(grads[0].numpy(), g.reshape(2, 3, 4, 5, 8).sum(axis=2).transpose(0, 2, 1, 3), rtol=1e-6, atol=1e-6)
+
+
+def upstream_gqa_fwd_bwd(q, k, v, do, scale):
+    """The JAX model's composition on [B, L, heads, hd]: ``jnp.repeat`` of K/V
+    over the group, the transposes, the upstream op; output and dq, dk, dv
+    (dk, dv of the unrepeated K/V)."""
+    group = q.shape[2] // k.shape[2]
+
+    def f(a, b, c):
+        b, c = (jnp.repeat(x, group, axis=2) for x in (b, c))
+        out = upstream.flash_attention(*(x.transpose(0, 2, 1, 3) for x in (a, b, c)), causal=True, sm_scale=scale)
+        return out.transpose(0, 2, 1, 3)
+
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+        grads = vjp(jnp.asarray(do))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("group,L,hd", [(7, 128, 64), (7, 256, 128), (2, 256, 64), (2, 128, 128)])
+def test_gqa_entry_matches_jax_repeat_and_upstream(group, L, hd):
+    """flash_attention_gqa on the model's layout (q [B, L, H, hd], k, v
+    [B, L, KVH, hd]) against the JAX model's jnp.repeat + transposes +
+    upstream op, float32: group 7 (Qwen's 28 / 4) and 2, B 1, KVH 1 and 2.
+    Forward within 1e-5 absolute; dq and the unrepeated dk, dv within 1e-5
+    of the largest element of the JAX gradient, the file's tolerance (the
+    group's sum in another order on top of the float32 sums)."""
+    kvh = 1 if group == 7 else 2
+    rng = np.random.default_rng(group * 1000 + L + hd)
+    q, do = (rng.standard_normal((1, L, group * kvh, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, L, kvh, hd)).astype(np.float32) for _ in range(2))
+    scale = float(1.0 / np.sqrt(hd))
+    want, want_grads = upstream_gqa_fwd_bwd(q, k, v, do, scale)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = fa.flash_attention_gqa(tq, tk, tv, scale)
+    out.backward(torch.from_numpy(do))
+    assert out.shape == q.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=0, atol=1e-5)
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want_grads):
+        assert got.shape == ref.shape
+        assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_gqa_wrapper_checks_shapes_and_devices():
+    """The model's entry refuses what the kernels do not take, on any device:
+    H not a multiple of KVH, L not a positive multiple of 128, mismatched
+    shapes or dtypes, a device other than the CPU or a card. No kernel runs
+    here."""
+    q = torch.zeros((1, 256, 6, 64))
+    kv = torch.zeros((1, 256, 4, 64))
+    with pytest.raises(ValueError, match="multiple of 4 KV heads"):
+        fa.flash_attention_gqa(q, kv, kv)
+    for bad in (q[:, :100], q[:, :64]):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fa.flash_attention_gqa(bad, kv[:, : bad.shape[1], :2], kv[:, : bad.shape[1], :2])
+    with pytest.raises(ValueError, match="must be"):
+        fa.flash_attention_gqa(q, kv[:, :128, :2], kv[:, :128, :2])
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_gqa(q, kv[..., :2, :].bfloat16(), kv[..., :2, :])
+    meta = torch.empty((1, 128, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_gqa(meta, meta[:, :, :2], meta[:, :, :2])
+
+
+def test_model_flash_branch_reaches_the_gqa_entry(monkeypatch):
+    """attn_impl="flash" sends each layer's q and grouped K/V to
+    flash_attention_gqa in the model's layout, once a layer, and never to the
+    upstream-layout entry (which would need the K/V repeat and transposes
+    around it): both are counted by wrappers here."""
+    seen, upstream_calls = [], []
+    gqa = fa.flash_attention_gqa
+
+    def recorder(q, k, v, sm_scale=1.0):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        return gqa(q, k, v, sm_scale)
+
+    monkeypatch.setattr(fa, "flash_attention_gqa", recorder)
+    monkeypatch.setattr(fa, "flash_attention", lambda *a, **k: upstream_calls.append(1))
+    cfg = tllm.LLMConfig(vocab_size=256, dim=128, layers=2, heads=4, kv_heads=2, ffn=128, max_len=128, lora_rank=0,
+                         dtype=torch.float32, attn_impl="flash")
+    model = tllm.DecoderLM(cfg, device="cpu", seed=3)
+    n = fa.calls
+    with torch.no_grad():
+        out = model(torch.ones((2, 128), dtype=torch.int32))
+    assert seen == [((2, 128, 4, 32), (2, 128, 2, 32), (2, 128, 2, 32))] * cfg.layers
+    assert fa.calls - n == cfg.layers and not upstream_calls
+    assert bool(torch.isfinite(out).all())
 
 
 def jax_flash_calls(cfg, L, masked, decode, monkeypatch):

@@ -489,6 +489,112 @@ def test_flash_attention_kernel_is_causal_counts_and_checks(cuda):
     assert (flash_attention.launches, flash_attention.launches_bwd) == (n_f + 3, n_b + 1)
 
 
+def _flash_gqa(q, k, v, scale):
+    return flash_attention.flash_attention_gqa(q, k, v, scale)
+
+
+def flash_gqa_inputs(B, H, KVH, L, hd, dtype, device, seed=0, packed=False):
+    """q, dout [B, L, H, hd] and k, v [B, L, KVH, hd]; ``packed``: q, k, v
+    are slices of one [B, L, (H + 2 KVH) hd] tensor, as the model's fused
+    q|k|v projection gives them (strided rows, read in place)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    if packed:
+        qkv = mk(B, L, (H + 2 * KVH) * hd)
+        q = qkv[..., : H * hd].unflatten(-1, (H, hd))
+        k = qkv[..., H * hd : (H + KVH) * hd].unflatten(-1, (KVH, hd))
+        v = qkv[..., (H + KVH) * hd :].unflatten(-1, (KVH, hd))
+    else:
+        q, k, v = mk(B, L, H, hd), mk(B, L, KVH, hd), mk(B, L, KVH, hd)
+    return q, k, v, mk(B, L, H, hd)
+
+
+def _err_over_plain_heads(got, want, ref):
+    """_err_over_plain on the model's layout [B, L, heads, hd]: per (b, head)."""
+    return _err_over_plain(got.transpose(1, 2), want.transpose(1, 2), ref.transpose(1, 2))
+
+
+# (B, H, KV heads, L, hd): groups 1, 2 and 7 (Qwen's 28 / 4 and the bench's
+# 14 / 2), L 128 and 2048, both head dims, the 7B layer
+FLASH_GQA_GEOMS = [
+    (1, 3, 3, 128, 64),
+    (2, 4, 2, 128, 128),
+    (1, 7, 1, 2048, 64),
+    (1, 14, 2, 2048, 128),
+    (2, 28, 4, 1024, 128),
+    (3, 14, 2, 768, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", FLASH_GQA_GEOMS)
+def test_flash_attention_gqa_kernel_matches_plain(cuda, geom, dtype):
+    """On the card, the model's entry (K/V read at KVH heads, the group's dk
+    and dv summed in the kernels) against its plain composition, at the
+    limits of test_flash_attention_kernel_matches_plain: bf16 forward row by
+    row within 2^-6, bf16 gradients within twice the plain bf16 version's own
+    error per (b, head) (query heads for dq, KV heads for dk and dv); float32
+    forward within 2e-5, gradients within 1e-5 of the largest element."""
+    B, H, KVH, L, hd = geom
+    q, k, v, dout = flash_gqa_inputs(B, H, KVH, L, hd, dtype, cuda, seed=L + hd + H)
+    scale = hd**-0.5
+    got = _attn_grads(_flash_gqa, q, k, v, dout, scale)
+    torch.cuda.synchronize()
+    want = _attn_grads(flash_attention.flash_attention_gqa_plain, q, k, v, dout, scale)
+    ref = _attn_grads(flash_attention.flash_attention_gqa_plain, q.float(), k.float(), v.float(), dout.float(), scale)
+    assert got[0].dtype == dtype and got[0].shape == q.shape and bool(torch.isfinite(got[0]).all())
+    if dtype == torch.bfloat16:
+        assert _row_err(got[0], want[0]) <= 2**-6
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-5)
+    for g, w, r in zip(got[1:], want[1:], ref[1:]):
+        assert g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all())
+        if dtype == torch.bfloat16:
+            assert _err_over_plain_heads(g, w, r) <= 2.0
+        else:
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_reads_packed_qkv_in_place(cuda, dtype):
+    """q, k, v as slices of one fused q|k|v tensor (rows (H + 2 KVH) hd
+    apart, the model's fused_qkv layout) give the same bits as contiguous
+    copies, forward and backward, and the backward is bit-equal twice."""
+    q, k, v, dout = flash_gqa_inputs(2, 14, 2, 768, 64, dtype, cuda, seed=9, packed=True)
+    assert not v.is_contiguous()
+    got = _attn_grads(_flash_gqa, q, k, v, dout, 0.125)
+    want = _attn_grads(_flash_gqa, q.contiguous(), k.contiguous(), v.contiguous(), dout, 0.125)
+    again = _attn_grads(_flash_gqa, q, k, v, dout, 0.125)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_flash_attention_gqa_counts_and_checks(cuda):
+    """Each forward and each backward of the model's entry adds one to the
+    same counts as the upstream entry; what the kernels do not take (hd 32,
+    H not a multiple of KVH, L 320, float16, a stride TMA refuses) raises and
+    counts nothing."""
+    q, k, v, dout = flash_gqa_inputs(1, 4, 2, 384, 64, torch.bfloat16, cuda, seed=4)
+    n_f, n_b = flash_attention.launches, flash_attention.launches_bwd
+    _attn_grads(_flash_gqa, q, k, v, dout, 0.125)
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (n_f + 1, n_b + 1)
+    with pytest.raises(ValueError, match="head dim"):
+        _flash_gqa(q[..., :32], k[..., :32], v[..., :32], 0.125)
+    with pytest.raises(ValueError, match="multiple of 2 KV heads"):
+        _flash_gqa(q[:, :, :3], k, v, 0.125)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        _flash_gqa(q[:, :320], k[:, :320], v[:, :320], 0.125)
+    with pytest.raises(TypeError):
+        _flash_gqa(q.half(), k.half(), v.half(), 0.125)
+    wide = torch.zeros((1, 256, 2, 68), device=cuda, dtype=torch.bfloat16)[..., :64]  # rows 136 elements apart: not 16-byte multiples
+    with pytest.raises(ValueError, match="TMA"):
+        _flash_gqa(torch.zeros((1, 256, 4, 68), device=cuda, dtype=torch.bfloat16)[..., :64], wide, wide, 0.125)
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (n_f + 1, n_b + 1)
+
+
 def fused_ce_inputs(N, D, V, dtype, device, seed=1, spread=1.0):
     rng = np.random.default_rng(seed)
     h = torch.from_numpy((rng.standard_normal((N, D)) * 0.3 * spread).astype(np.float32)).to(device, dtype)
