@@ -40,8 +40,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
    replays;
 6. holds kernels A and B against their plain versions on the measure path's
    own tensors (A within 1e-6, B exactly);
-7. times A, B, their plain versions and ``torch.topk`` (CUDA events), and
-   gives B's chain floor: the least time its dependent chains can take,
+7. times A, its plain version and ``torch.topk`` as CUDA-graph replays (A
+   over two copies of r in turn, L2 cold; one copy and CUDA events around
+   eager calls printed beside), B and its plain version between CUDA events,
+   and gives B's chain floor: the least time its dependent chains can take,
    from a shuffle's and a float add's latency measured on the card;
 8. serves the LLM at the full width of ``LLMConfig.qwen25_7b()`` in
    bfloat16, weights made on the card from the seed: ``fuse_decode_params``
@@ -94,9 +96,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
 
 While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
 ``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu``,
-``csrc/viterbi.cu`` and ``csrc/flash_attention.cu`` reports the registers,
-spills and shared memory of kernel G's bfloat16 kernels and of all of
-kernels H's, F's, B's and the flash attention's.
+``csrc/viterbi.cu``, ``csrc/flash_attention.cu``, ``csrc/pitch_candidates.cu``
+and ``csrc/chunk_cumsum.cu`` reports the registers, spills and shared memory
+of kernel G's bfloat16 kernels and of all of kernels H's, F's, B's, the flash
+attention's, A's (each per-lane instantiation) and E's.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with twelve entries, and last ``{"ok": true,
@@ -188,6 +191,13 @@ FA_PREVIOUS_MS = {"fwd": (0.0881, 0.0556), "bwd": (0.3646, 0.2311)}
 # 700 W. Recorded, not measured by this script: printed beside the kernel lines only.
 F_PREVIOUS_MS = (0.0213, 0.0208)
 B_PREVIOUS_MS = 5.015
+# kernel A's time (ms, measure voice; CUDA events around eager calls) of the
+# design with k rounds of warp argmax, and kernel E's (ms, [16, 1,040,384];
+# CUDA-graph replay) of the design with one 1024-thread block a chunk:
+# PERF.md section 6, H100 80GB HBM3 at 700 W. Recorded, not measured by this
+# script: printed beside the kernel lines only.
+A_PREVIOUS_MS = 0.0688
+E_PREVIOUS_MS = 0.1127
 # kernel F's serving launches for the ptxas report: dtype code, hd, B, KV heads, S
 F_SERVING_LAUNCHES = {"7b": (1, 128, 16, 4, 192), "bench": (1, 64, 64, 2, 320)}
 SM_REGISTERS, SM_SMEM = 65536, 233472  # per SM of an H100: registers; shared memory with 1 KB reserved per block
@@ -258,7 +268,8 @@ def card_line() -> str:
     return out[0].strip()
 
 
-PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu", "flash_attention.cu")
+PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu", "flash_attention.cu", "pitch_candidates.cu",
+                 "chunk_cumsum.cu")
 
 
 def start_ptxas_report():
@@ -309,18 +320,20 @@ def torch_sm_count() -> int:
 
 def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
     """Blocks of ``threads`` that fit an SM of the H100 by registers (allocated
-    8 a thread at a time) and by shared memory (1 KB reserved per block)."""
-    return min(SM_REGISTERS // (-(-registers // 8) * 8 * threads), SM_SMEM // (smem + 1024))
+    8 a thread at a time), by shared memory (1 KB reserved per block) and by
+    the SM's 2,048 threads and 32 blocks."""
+    return min(SM_REGISTERS // (-(-registers // 8) * 8 * threads), SM_SMEM // (smem + 1024), 2048 // threads, 32)
 
 
 def print_ptxas_report(procs, lib) -> None:
-    """Five lines: registers, spills and stack of each bfloat16 kernel of G,
-    of every kernel of H, of F, of B and of the flash attention (from ptxas),
-    the dynamic shared memory each asks for at launch
-    (``vmem_attn_bf16_smem_bytes``, ``fused_ce_smem_bytes``,
+    """Seven lines: registers, spills and stack of each bfloat16 kernel of G,
+    of every kernel of H, of F, of B, of the flash attention and of every
+    instantiation of A and E (from ptxas), the dynamic shared memory each
+    asks for at launch (``vmem_attn_bf16_smem_bytes``, ``fused_ce_smem_bytes``,
     ``decode_attn_smem_bytes`` at the serving shapes, ``viterbi_smem_bytes``,
-    ``flash_attn_smem_bytes``: the sizes the launchers pass) and, for H, F, B
-    and the flash attention, the blocks that fit an SM by registers and shared
+    ``flash_attn_smem_bytes``, ``pitch_candidates_smem_bytes`` at the measure
+    path's lags: the sizes the launchers pass) and, for H, F, B, the flash
+    attention, A and E, the blocks that fit an SM by registers and shared
     memory (``ops/fused_ce.py``'s plans count one)."""
     texts = {}
     for name, proc in zip(PTXAS_SOURCES, procs):
@@ -377,6 +390,24 @@ def print_ptxas_report(procs, lib) -> None:
                                                         int(re.search(r"<(\d+)>", name).group(1)), int(bf16))
         row["blocks_per_sm"] = blocks_per_sm(row["registers"], 384 if bf16 else 256, row["dynamic_smem"])
     print("ptxas: flash attention kernels: " + json.dumps(report))
+    from prosody_control_french_tts_tpu_torch.ops import pitch
+
+    g = pitch._geometry(1 << 20, 44100.0, pitch.PitchParams())
+    report = ptxas_rows(texts["pitch_candidates.cu"], r"(pitch_candidates_kernel)ILi(\d+)E")
+    if len(report) != 16:
+        raise SystemExit(f"{len(report)} of the 16 kernels of A in the ptxas report:\n{texts['pitch_candidates.cu'][-2000:]}")
+    for row in report.values():
+        row["dynamic_smem"] = lib.pitch_candidates_smem_bytes(g["min_lag"], g["max_lag"])
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 256, row["dynamic_smem"])
+    print(f"ptxas: kernel A kernels (<lags per lane>; shared memory at lags [{g['min_lag']}, {g['max_lag']})): "
+          + json.dumps(report))
+    report = ptxas_rows(texts["chunk_cumsum.cu"], r"(chunk_cumsum_kernel)")
+    if len(report) != 1:
+        raise SystemExit(f"no kernel of E in the ptxas report:\n{texts['chunk_cumsum.cu'][-2000:]}")
+    for row in report.values():
+        row["dynamic_smem"] = 0
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128, 0)
+    print("ptxas: kernel E kernels: " + json.dumps(report))
 
 
 def viterbi_chain_floor(lib, F: int, K: int) -> dict:
@@ -866,8 +897,10 @@ def kernels_cde_phase(seg_files, card: str, device="cuda") -> list:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / PEAK_FLOPS["f32"] * 1e3
         rows.append(dict(spec, max_abs_err=max_err, ms=t, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib, check="pass", shape=shape))
+        extra = (f"; the one-block-a-chunk design: {E_PREVIOUS_MS} ms (PERF.md, not measured here)"
+                 if spec is KERNEL_E else "")
         print(f"kernel {spec['name']} ({json.dumps(shape)}): ms={t:.4f} bound_ms={max(t_bytes, t_ops):.5f} ({nbytes} bytes, {nops} ops) "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} card={card}")
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} card={card}{extra}")
     print(f"kernel frames via frames_op: ms={ms['frames_op']:.4f}; card={card}")
     return rows
 
@@ -2170,14 +2203,27 @@ def main() -> int:
 
     # -- 7. timing of A and B ----------------------------------------------
     R, L = r.shape
-    bytes_a = R * L * 4 + R * k * (4 + 4 + 1)
+    # A's outputs depend on the lags min_lag - 1 .. max_lag of each row only,
+    # and it reads no others; the bound over whole rows is printed beside
+    bytes_a = R * (max_lag - min_lag + 2) * 4 + R * k * (4 + 4 + 1)
+    bytes_a_rows = R * L * 4 + R * k * (4 + 4 + 1)
     lag = torch.arange(L, device=dev)
     r_m1 = torch.cat([r[:, :1], r[:, :-1]], -1)
     r_p1 = torch.cat([r[:, 1:], r[:, -1:]], -1)
     score = torch.where((r > r_m1) & (r >= r_p1) & (r > 0.5 * vth) & (lag >= min_lag) & (lag < max_lag), r, float("-inf"))
-    ms_a = cuda_ms(lambda: candidates.topk_parabolic(r, k, min_lag, max_lag, vth), reps=50)
-    plain_a = cuda_ms(lambda: candidates.topk_parabolic_plain(r, k, min_lag, max_lag, vth), reps=5)
-    lib_a = cuda_ms(lambda: torch.topk(score, k, dim=-1), reps=50)
+    # two copies of r in turn (2 x 56 MB, past the 50 MB L2): L2 cold, as C/D/E
+    r_copies, turn = [r, r.clone()], [0]
+
+    def call_a():
+        turn[0] += 1
+        return candidates.topk_parabolic(r_copies[turn[0] % 2], k, min_lag, max_lag, vth)
+
+    ms_a = graph_ms(call_a, reps=20)
+    ms_a_one_copy = graph_ms(lambda: candidates.topk_parabolic(r, k, min_lag, max_lag, vth), reps=20)
+    events_a = cuda_ms(lambda: candidates.topk_parabolic(r, k, min_lag, max_lag, vth), reps=50)
+    plain_a = graph_ms(lambda: candidates.topk_parabolic_plain(r, k, min_lag, max_lag, vth), reps=3)
+    lib_a = graph_ms(lambda: torch.topk(score, k, dim=-1), reps=10)
+    del r_copies
 
     S, F, K = delta.shape
     bytes_b = S * F * K * (4 + 4 + 1 + 4) + S * F * 4
@@ -2195,7 +2241,11 @@ def main() -> int:
         rows_out.append(dict(spec, launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                              bound_by="bytes", library_ms=lib_ms, check="pass", **(floor if spec is KERNEL_B else {})))
         extra = (f"; chain_floor_ms={floor['chain_floor_ms']:.4f} ({floor['chain_floor']}); "
-                 f"the one-warp design: {B_PREVIOUS_MS} ms (PERF.md, not measured here)") if spec is KERNEL_B else ""
+                 f"the one-warp design: {B_PREVIOUS_MS} ms (PERF.md, not measured here)") if spec is KERNEL_B else (
+            f" (CUDA-graph replay over two copies of r, L2 cold; on one copy {ms_a_one_copy:.4f}, between CUDA events "
+            f"around eager calls {events_a:.4f}; plain and torch.topk by graph replay; the bound over whole rows "
+            f"{bytes_a_rows / HBM_BYTES_PER_S * 1e3:.5f} ({bytes_a_rows} bytes)); the argmax-rounds design: "
+            f"{A_PREVIOUS_MS} ms (PERF.md, CUDA events, not measured here)")
         print(f"kernel {spec['name']}: ms={ms:.4f} launches={n} bound_ms={bound:.5f} (bytes {nbytes}) "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
               f"max_abs_err={err:.3e} card={card}{extra}")

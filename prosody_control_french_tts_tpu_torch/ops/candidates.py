@@ -14,7 +14,7 @@ import torch
 
 from . import kernels
 
-MAX_L = 512  # the kernel keeps a row's lags in registers, 16 per lane
+MAX_L = 512  # the kernel keeps a row's lags in registers, at most 16 per lane
 
 launches = 0  # kernel launches (CUDA path only)
 
@@ -72,7 +72,7 @@ def topk_parabolic(r: torch.Tensor, k: int, min_lag: int, max_lag: int, vth: flo
         raise ValueError("topk_parabolic: k must be >= 1")
     lag_f = torch.empty((R, k), dtype=torch.float32, device=r.device)
     strength = torch.empty((R, k), dtype=torch.float32, device=r.device)
-    valid = torch.empty((R, k), dtype=torch.uint8, device=r.device)
+    valid = torch.empty((R, k), dtype=torch.bool, device=r.device)  # the kernel writes bytes 0 and 1
     lib = kernels.library()
     global launches
     rc = lib.pitch_candidates_launch(
@@ -81,4 +81,4 @@ def topk_parabolic(r: torch.Tensor, k: int, min_lag: int, max_lag: int, vth: flo
     )
     kernels.check(rc, "pitch_candidates")
     launches += 1
-    return lag_f, strength, valid.bool()
+    return lag_f, strength, valid

@@ -18,6 +18,7 @@ from . import kernels
 
 CUMSUM_CHUNK = 1024
 CUMSUM_ROWS = 8  # the TPU kernel's row tile: R must be a multiple
+MAX_CHUNKS = 4 * (2**31 - 1)  # the kernel's 1-D grid: 4 chunks (one a warp) per block
 
 launches = 0  # kernel launches (CUDA path only)
 
@@ -59,8 +60,8 @@ def chunk_cumsum(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chunk_cumsum: unsupported device {x.device}")
     kernels.require(x, "x", torch.float32, 2, x.device)
     R, C = x.shape
-    if R > 65535:
-        raise ValueError(f"chunk_cumsum: {R} rows exceed the grid's 65535")
+    if R * (C // CUMSUM_CHUNK) > MAX_CHUNKS:
+        raise ValueError(f"chunk_cumsum: {R * (C // CUMSUM_CHUNK)} chunks exceed the grid's {MAX_CHUNKS}")
     out = torch.empty_like(x)
     global launches
     rc = kernels.library().chunk_cumsum_launch(x.data_ptr(), out.data_ptr(), R, C, kernels.stream_ptr(x))

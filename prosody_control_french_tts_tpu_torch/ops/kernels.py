@@ -54,6 +54,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # r, lag_f, strength, valid, rows, L, k, min_lag, max_lag, half_vth, stream
     "pitch_candidates_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP),
+    # min_lag, max_lag -> bytes of dynamic shared memory
+    "pitch_candidates_smem_bytes": (_I, _I),
     # delta, lf, voiced, freq, back, f0, S, F, K, vuv_cost, jump_cost, stream
     "viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP),
     # K bound of the instantiation (16 or 32) -> bytes of dynamic shared memory

@@ -53,6 +53,42 @@ def candidate_fixtures(seed):
     return np.stack(rows).astype(np.float32)
 
 
+# kernel A's per-lane register counts P = ceil(L / 32): one L for each
+# instantiation (P 1..16), with the edges 3, 32, 33, 297 (the measure path's)
+# and 512
+CAND_LENGTHS = (3, 27, 32, 33, 64, 65, 127, 128, 129, 160, 192, 224, 256, 288, 297, 320, 352, 384, 416, 448, 480, 511,
+                512)
+
+
+def maxima_counts(L, k):
+    """The row kinds of kernel A's tests: rows with 0, 1, k − 1, k, k + 1,
+    32 and 33 local maxima, and as many as interior lags [1, L − 1) hold
+    (every other lag: (L − 1) // 2, about L/2), each capped at that most."""
+    most = (L - 1) // 2
+    return [min(m, most) for m in (0, 1, max(k - 1, 0), k, k + 1, 32, 33, most)]
+
+
+def maxima_rows(L, k, seed):
+    """r [2 · 8, L]: for each of :func:`maxima_counts`, a row with exactly
+    that many local maxima above the voicing threshold at odd lags of
+    [1, L − 1) (min_lag 1, max_lag L − 1), on a floor below it; once with
+    distinct peak values, once with peaks from three levels, so that exact
+    ties straddle the 32-entry rounds of the kernel's rank."""
+    rng = np.random.default_rng(seed)
+    odd = np.arange(1, L - 1, 2)
+    rows = []
+    for m in maxima_counts(L, k):
+        for ties in (False, True):
+            row = rng.uniform(0.0, 0.2, L).astype(np.float32)  # below 0.5 * VTH: no maxima
+            lags = np.sort(rng.choice(odd, size=m, replace=False)) if m else odd[:0]
+            if ties:
+                row[lags] = rng.choice(np.array([0.5, 0.7, 0.9], np.float32), size=m)
+            else:
+                row[lags] = rng.uniform(0.3, 1.0, m).astype(np.float32)
+            rows.append(row)
+    return np.stack(rows)
+
+
 def random_viterbi_inputs(seed, S=3, F=50, K=15):
     """δ, lf, voiced, freq [S, F, K] with unvoiced candidate 0, random
     unvoiced entries and candidates above the ceiling."""
@@ -107,6 +143,37 @@ def test_viterbi_plain_padding_lanes_never_win():
 def test_candidates_kernel_matches_plain(cuda, seed):
     """On the card: lag_f and strength within 1e-6, valid equal."""
     r = torch.from_numpy(candidate_fixtures(seed)).to(cuda)
+    got = candidates.topk_parabolic(r, K_CAND, MIN_LAG, MAX_LAG, VTH)
+    want = candidates.topk_parabolic_plain(r, K_CAND, MIN_LAG, MAX_LAG, VTH)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, K_CAND, 40])
+@pytest.mark.parametrize("L", CAND_LENGTHS)
+def test_candidates_kernel_on_maxima_rows(cuda, L, k):
+    """Every per-lane instantiation (P 1..16), rows with 0 .. (L − 1) // 2
+    maxima (the rank's overflow rounds past 32) and exact ties across the
+    rounds: valid equal, lag_f and strength within 1e-6."""
+    r = torch.from_numpy(maxima_rows(L, k, seed=L * 100 + k)).to(cuda)
+    got = candidates.topk_parabolic(r, k, 1, L - 1, VTH)
+    want = candidates.topk_parabolic_plain(r, k, 1, L - 1, VTH)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_candidates_kernel_at_the_measure_shape(cuda):
+    """[47,150, 297], k 14, the measure path's lags: the fixture rows and the
+    maxima rows tiled, each tile scaled by its own factor."""
+    base = np.concatenate([candidate_fixtures(8), maxima_rows(297, K_CAND, seed=9)])
+    reps = -(-47150 // base.shape[0])
+    scale = np.random.default_rng(10).uniform(0.5, 1.0, reps).astype(np.float32)
+    r = (np.tile(base, (reps, 1)) * np.repeat(scale, base.shape[0])[:, None])[:47150]
+    r = torch.from_numpy(np.ascontiguousarray(r, np.float32)).to(cuda)
     got = candidates.topk_parabolic(r, K_CAND, MIN_LAG, MAX_LAG, VTH)
     want = candidates.topk_parabolic_plain(r, K_CAND, MIN_LAG, MAX_LAG, VTH)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
@@ -809,20 +876,37 @@ def test_frames_wrapper_checks(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 1024), (16, 4096), (24, 3072), (16, 65536)])
+@pytest.mark.parametrize("shape", [(8, 1024), (16, 4096), (24, 3072), (16, 65536), (16, 1040384), (65544, 1024)])
 @pytest.mark.parametrize("square", [False, True])
 def test_chunk_cumsum_kernel_equals_plain(cuda, shape, square):
     """Kernel E keeps the TPU kernel's shift-add ladder with round-to-nearest
-    adds: equal to the plain version bit for bit."""
-    x = torch.from_numpy(np.random.default_rng(shape[1] + square).normal(size=shape).astype(np.float32))
+    adds: equal to the plain version bit for bit, at the measure voice's
+    [16, 1,040,384] and past the 65,535 rows of the earlier 2-D grid."""
+    x = torch.from_numpy(np.random.default_rng(shape[1] + square).normal(size=shape).astype(np.float32)).to(cuda)
     if square:
         x = x * x
     want = chunk_cumsum.chunk_cumsum_plain(x)
     n = chunk_cumsum.launches
-    got = chunk_cumsum.chunk_cumsum(x.to(cuda))
+    got = chunk_cumsum.chunk_cumsum(x)
     torch.cuda.synchronize()
     assert chunk_cumsum.launches == n + 1
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1024), (16, 1040384)])
+def test_chunk_cumsum_kernel_on_cancelling_inputs(cuda, shape):
+    """Values of ±1e8 that cancel pairwise, with exact −0.0 and +0.0 (an add
+    of 0.0 turns −0.0 into +0.0): equal bit for bit, signs of zero included."""
+    rng = np.random.default_rng(shape[1])
+    x = (rng.choice([-1.0, 1.0], size=shape) * 1e8 + rng.normal(size=shape)).astype(np.float32)
+    x[:, 1::2] = -x[:, 0::2]
+    x[:, 2::7] = -0.0
+    x[:, 3::11] = 0.0
+    x = torch.from_numpy(x).to(cuda)
+    got = chunk_cumsum.chunk_cumsum(x)
+    want = chunk_cumsum.chunk_cumsum_plain(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu
