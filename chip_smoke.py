@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the measure-and-SSML step, the
-eight-step voice pipeline, the standalone frame and cumsum kernels, the LLM
+eight-step voice pipeline, the multi-voice pipeline with its denoisers, the
+standalone frame and cumsum kernels, the LLM
 serving path and the LLM training path (LoRA fine-tuning, at L 512 with
 kernel G and at L 1024 / 768 with the flash attention).
 
@@ -96,13 +97,40 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
 
 While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
 ``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu``,
-``csrc/viterbi.cu``, ``csrc/flash_attention.cu``, ``csrc/pitch_candidates.cu``
-and ``csrc/chunk_cumsum.cu`` reports the registers, spills and shared memory
-of kernel G's bfloat16 kernels and of all of kernels H's, F's, B's, the flash
-attention's, A's (each per-lane instantiation) and E's.
+``csrc/viterbi.cu``, ``csrc/flash_attention.cu``, ``csrc/pitch_candidates.cu``,
+``csrc/chunk_cumsum.cu`` and ``csrc/mask_ema.cu`` reports the registers,
+spills and shared memory of kernel G's bfloat16 kernels and of all of
+kernels H's, F's, B's, the flash attention's, A's (each per-lane
+instantiation), E's and mask_ema's.
+
+15. (run right after phase 4) the multi-voice pipeline, ``multiprocessing:
+    true``, at full width: four brute recordings at 44.1 kHz of 10 segments
+    joined by 1.5 s of zeros (seeds 0, 2, 3 with segments of 8–23 s, in the
+    T 1,040,384 bucket; seed 4 with segments of 4–11 s, in the T 516,096
+    bucket: two (T, rate) groups, 616.7 s), ``denoise: mask`` (the
+    MaskNet separator on the card), the fake TTS and the energy aligner,
+    driven as bench.py's multi-voice cell: ``run_all_voices`` with Preprocess
+    alone, the transcripts, then the other seven steps; cold, then warm with
+    every count set to 0 just before and read just after (A and B once per
+    group, 2 each; the per-voice measure pass never); checks that every voice
+    returns ok, that each denoised recording splits back into 10 segments,
+    every artifact of the end-to-end test for every voice, and each voice's
+    batched rows against a per-voice ``measure_voice`` on the card (1e-3,
+    equal syntagmes); holds ``mask_ema`` bit-equal to its plain version on
+    the mask of the 159.5 s recording and times it; holds ``denoise`` and
+    ``MaskSeparator.separate`` on the card against the CPU on a 20 s excerpt
+    (1e-5 of the peak; 30 dB SI-SNR); runs a 2-voice set in two groups with
+    ``denoise: spectral`` on the card (``mask_ema`` once per voice) and on
+    the CPU, holding the silence ranges, TextGrids and segment / syntagme /
+    pause columns equal and the adjustments within 0.05 points; prints the
+    four-voice run's audio-s/s warm and cold with its per-step split, the
+    batched measure step beside four per-voice ``measure_voice`` calls (each
+    profiled, with its device-busy share), kernel B at S = 30 beside S = 10,
+    and the denoisers' seconds per audio-second on the card.
 
 It prints the card's name and power limit, one line per kernel, a
-``{"kernels": [...]}`` line with twelve entries, and last ``{"ok": true,
+``{"kernels": [...]}`` line with thirteen entries (mask_ema, which replaces
+no TPU kernel, among them), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -252,6 +280,13 @@ KERNEL_C = dict(
     replaces="prosody_control_french_tts_tpu/ops/pallas_kernels.py:75",
 )
 KERNEL_D = dict(KERNEL_C, name="frames_aligned", replaces="prosody_control_french_tts_tpu/ops/pallas_kernels.py:183")
+# not a TPU kernel: the spectral gate's time smoothing, a lax.scan in the JAX package
+KERNEL_MASK_EMA = dict(
+    name="mask_ema",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/mask_ema.cu",
+    replaces="prosody_control_french_tts_tpu/audio/denoise.py:49",
+)
 KERNEL_E = dict(
     name="chunk_cumsum",
     route="cuda",
@@ -269,7 +304,7 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu", "flash_attention.cu", "pitch_candidates.cu",
-                 "chunk_cumsum.cu")
+                 "chunk_cumsum.cu", "mask_ema.cu")
 
 
 def start_ptxas_report():
@@ -408,6 +443,13 @@ def print_ptxas_report(procs, lib) -> None:
         row["dynamic_smem"] = 0
         row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128, 0)
     print("ptxas: kernel E kernels: " + json.dumps(report))
+    report = ptxas_rows(texts["mask_ema.cu"], r"(mask_ema_kernel)")
+    if len(report) != 1:
+        raise SystemExit(f"no mask_ema kernel in the ptxas report:\n{texts['mask_ema.cu'][-2000:]}")
+    for row in report.values():
+        row["dynamic_smem"] = 8 * 32 * 33 * 4  # kDepth tiles of [32 bins x 33 words]
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 32, row["dynamic_smem"])
+    print("ptxas: mask_ema kernel: " + json.dumps(report))
 
 
 def viterbi_chain_floor(lib, F: int, K: int) -> dict:
@@ -457,18 +499,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 class Capture:
     """Wrap a module function to keep the arguments of its calls (the last
-    ``keep`` of them, or all) and count them (``count``)."""
+    ``keep`` of them, or all) and their results (``results``, likewise), and
+    count them (``count``)."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.orig = module, name, getattr(module, name)
         self.calls = collections.deque(maxlen=keep)
+        self.results = collections.deque(maxlen=keep)
         self.count = 0
 
     def __enter__(self):
         def wrapper(*a, **k):
             self.count += 1
             self.calls.append((a, k))
-            return self.orig(*a, **k)
+            out = self.orig(*a, **k)
+            self.results.append(out)
+            return out
 
         setattr(self.module, self.name, wrapper)
         return self
@@ -639,9 +685,11 @@ def drive_voice(base: Path, name: str, texts, device) -> tuple:
     return pipe, pre + rest, pre_s + rest_s
 
 
-def check_pipeline_artifacts(pipe, n_segments: int) -> None:
+def check_pipeline_artifacts(pipe, n_segments: int, run_files: bool = True) -> None:
     """The artifacts of the JAX package's end-to-end test
-    (tests/test_pipeline_e2e.py), each present and well formed."""
+    (tests/test_pipeline_e2e.py), each present and well formed.
+    ``run_files``: also ``step_timings.jsonl`` and ``used_config.yaml``,
+    which ``AudioPipeline.run`` writes (the multi-voice runner does not)."""
     import numpy as np
 
     from prosody_control_french_tts_tpu_torch.utils.textgridio import read_textgrid
@@ -697,22 +745,30 @@ def check_pipeline_artifacts(pipe, n_segments: int) -> None:
     cmp_rows = read_csv(res / "pause_comparison_full.csv")
     if not cmp_rows or not {"segment", "nat_voice_ms", "synth_voice_ms", "diff_ms"} <= set(cmp_rows[0]):
         raise SystemExit("pipeline: pause_comparison_full.csv")
+    if not run_files:
+        return
     steps = [json.loads(line)["step"] for line in (res / "step_timings.jsonl").read_text().splitlines()]
     if not steps or not (res / "used_config.yaml").read_text(encoding="utf-8").startswith("aligner: energy"):
         raise SystemExit("pipeline: step_timings.jsonl or used_config.yaml")
 
 
 def kernel_counts() -> dict:
-    from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, frames, viterbi
+    """The kernel wrappers' launch counts, and the calls of the per-voice
+    measure pass (``run_measure_device``)."""
+    from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, frames, mask_ema, viterbi
+    from prosody_control_french_tts_tpu_torch.prosody import measure
 
     return {"pitch_candidates": candidates.launches, "viterbi": viterbi.launches, "frames": frames.launches,
-            "chunk_cumsum": chunk_cumsum.launches}
+            "chunk_cumsum": chunk_cumsum.launches, "mask_ema": mask_ema.launches,
+            "run_measure_device": measure.run_measure_device_calls}
 
 
 def reset_kernel_counts() -> None:
-    from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, frames, viterbi
+    from prosody_control_french_tts_tpu_torch.ops import candidates, chunk_cumsum, frames, mask_ema, viterbi
+    from prosody_control_french_tts_tpu_torch.prosody import measure
 
-    candidates.launches = viterbi.launches = frames.launches = chunk_cumsum.launches = 0
+    candidates.launches = viterbi.launches = frames.launches = chunk_cumsum.launches = mask_ema.launches = 0
+    measure.run_measure_device_calls = 0
 
 
 def per_step(records) -> dict:
@@ -746,8 +802,8 @@ def pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> dict:
     print(f"pipeline warm run launches: {json.dumps(counts)}")
     if counts["pitch_candidates"] != 1 or counts["viterbi"] != 1:
         raise SystemExit(f"pipeline: kernels A and B must launch once per measure call, got {counts}")
-    if counts["frames"] or counts["chunk_cumsum"]:
-        raise SystemExit(f"pipeline: kernels C/D/E have no caller on this path, got {counts}")
+    if counts["frames"] or counts["chunk_cumsum"] or counts["mask_ema"]:
+        raise SystemExit(f"pipeline: kernels C/D/E have no caller on this path and the identity denoiser no mask_ema, got {counts}")
     check_pipeline_artifacts(pipe, FULL_SEGMENTS)
     rep = pipe.last_breaks
     print(f"pipeline breaks: {rep.total} compared, {rep.within} within ±5 ms ({100.0 * rep.within / max(rep.total, 1):.1f} %), "
@@ -785,6 +841,293 @@ def pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> dict:
     print("pipeline phases cold: " + json.dumps({k: round(v, 4) for k, v in sorted(cold_phases.items())}))
     print("profile (warm pipeline run): " + json.dumps(trace))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the multi-voice pipeline (multiprocessing: true) and its denoisers
+# ---------------------------------------------------------------------------
+
+# (voice, seed, segment seconds): three voices in the T 1,040,384 bucket, one
+# in the T 516,096 bucket; two (T, rate) groups, 616.7 s of audio
+MULTI_VOICES = (("mv_a", 0, (8.0, 23.0)), ("mv_b", 2, (8.0, 23.0)), ("mv_c", 3, (8.0, 23.0)), ("mv_d", 4, (4.0, 11.0)))
+TOL_BATCHED = 1e-3  # batched rows vs per-voice rows (the JAX package's tests/test_batch_runner.py)
+# the denoisers, card vs CPU on the 20 s excerpt. The card read 4.47e-7
+# (8.0e-7 of the peak) and 69.2 dB; the limits leave 2.5x and 14 dB of room,
+# tighter than the CPU tests' limits against JAX (1e-5 of the peak, 30 dB),
+# so that a card-only precision fault (TF32 left on in the float32 Dense or
+# a LayerNorm) shows
+TOL_DENOISE = 2e-6  # spectral gate: max |diff| over the input's peak
+MIN_SEPARATE_SI_SNR = 55.0  # MaskNet separator: SI-SNR of the card's output against the CPU's, dB
+EXCERPT_S = 20.0
+
+
+def multi_voice_config(base: Path, names, steps, denoise: str):
+    from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
+
+    return PipelineConfig.from_dict({
+        "data_dir": "Data/voice", "out_dir": "Out", "voice_names": list(names), "azure_voice_name": "fr-FR-DeniseNeural",
+        "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300},
+        "tts_backend": "fake", "aligner": "energy", "multiprocessing": True, "denoise": denoise, "steps_to_run": steps,
+    }, base)
+
+
+def drive_all_voices(base: Path, texts: dict, device, denoise: str, timer=None) -> tuple:
+    """``run_all_voices`` with Preprocess alone, the transcripts from the synth
+    word lists, then ``run_all_voices`` with the other seven steps (as
+    bench.py's multi-voice cell) → (the pipelines of the second call by voice,
+    the pipelines of the first, wall seconds to the end of the device's work)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.core import batch_runner
+    from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
+    from prosody_control_french_tts_tpu_torch.prosody.measure import segment_sort_key
+
+    dev = torch.device(device)
+    pipes = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for steps in (["Preprocess"], AudioPipeline.STEP_NAMES[1:]):
+        with Capture(batch_runner, "AudioPipeline") as made:
+            res = batch_runner.run_all_voices(multi_voice_config(base, texts, steps, denoise), device=dev, timer=timer)
+        if sorted(res) != sorted((True, n) for n in texts):
+            raise SystemExit(f"multi-voice ({denoise}, {dev}): voices failed: {res}")
+        pipes.append({p.name: p for p in made.results})
+        if steps == ["Preprocess"]:
+            for name, want in texts.items():
+                p = pipes[0][name]
+                segs = sorted((p.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
+                if len(segs) != len(want):
+                    raise SystemExit(f"multi-voice {name}: the split of the denoised recording gave {len(segs)} "
+                                     f"segments of {len(want)} ({p.last_split})")
+                p.transcription_raw_dir.mkdir(parents=True, exist_ok=True)
+                for seg, text in zip(segs, want):
+                    (p.transcription_raw_dir / f"{seg.stem}.txt").write_text(text, encoding="utf-8")
+    sync(dev)
+    return pipes[1], pipes[0], time.perf_counter() - t0
+
+
+def rows_close(a, b, tol: float) -> float:
+    """Max |difference| of raw_pitch, raw_volume, raw_rate and pitch_smooth
+    over two row lists with equal syntagmes; raises where they differ."""
+    if len(a) != len(b) or any(x.syntagme != y.syntagme for x, y in zip(a, b)):
+        raise SystemExit("batched and per-voice rows differ in their syntagmes")
+    err = max((abs(getattr(x, f) - getattr(y, f)) for x, y in zip(a, b)
+               for f in ("raw_pitch", "raw_volume", "raw_rate", "pitch_smooth")), default=0.0)
+    if err >= tol:
+        raise SystemExit(f"batched rows differ from per-voice rows by {err} (tol {tol})")
+    return err
+
+
+def si_snr_db(est, ref) -> float:
+    """Scale-invariant SNR of est against ref, dB (the JAX package's
+    audio/separate.py:si_snr_db)."""
+    import numpy as np
+
+    ref = ref - ref.mean()
+    est = est - est.mean()
+    s = np.dot(est, ref) / (np.dot(ref, ref) + 1e-9) * ref
+    e = est - s
+    return float(10.0 * np.log10((np.dot(s, s) + 1e-9) / (np.dot(e, e) + 1e-9)))
+
+
+def check_a_b(calls_a, calls_b, label: str) -> tuple[float, float]:
+    """Holds every captured call of kernels A and B to its plain version on
+    the same card tensors: A's valid flags equal and its lag_f and strength
+    within TOL_A, B's f0 equal in every frame. Returns the max |err| of A and
+    of B over the calls."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+
+    err_a = err_b = 0.0
+    for (r, k, min_lag, max_lag, vth), _ in calls_a:
+        got = candidates.topk_parabolic(r, k, min_lag, max_lag, vth)
+        want = candidates.topk_parabolic_plain(r, k, min_lag, max_lag, vth)
+        if not torch.equal(got[2], want[2]):
+            raise SystemExit(f"kernel A ({label}, r {tuple(r.shape)}): valid differs from its plain version")
+        err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
+        if err > TOL_A:
+            raise SystemExit(f"kernel A ({label}, r {tuple(r.shape)}): max |err| {err} > {TOL_A}")
+        err_a = max(err_a, err)
+    for (delta, lf, voiced, freq, vuv, jump), _ in calls_b:
+        got = viterbi.viterbi_path(delta, lf, voiced, freq, vuv, jump)
+        want = viterbi.viterbi_path_plain(delta, lf, voiced, freq, vuv, jump)
+        err = float((got - want).abs().max())
+        if err > TOL_B:
+            raise SystemExit(f"kernel B ({label}, {tuple(delta.shape)}): {int((got != want).sum())} frames differ "
+                             f"from its plain version")
+        err_b = max(err_b, err)
+    print(f"check ({label}): pitch_candidates r {[tuple(a[0].shape) for a, _ in calls_a]} max |err| {err_a:.3e} "
+          f"(tol {TOL_A}, valid equal); viterbi {[tuple(a[0].shape) for a, _ in calls_b]} max |err| {err_b} (exact)")
+    return err_a, err_b
+
+
+def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict:
+    """Phase 15 of the module docstring. Returns the ``kernels`` row of
+    mask_ema, and the multi-voice launches, times and max |err| of A and B."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.audio import denoise as denoise_mod
+    from prosody_control_french_tts_tpu_torch.audio.separate import MaskSeparator
+    from prosody_control_french_tts_tpu_torch.core import batch_runner, profiling
+    from prosody_control_french_tts_tpu_torch.ops import candidates, mask_ema, viterbi
+    from prosody_control_french_tts_tpu_torch.ops.stft import stft
+    from prosody_control_french_tts_tpu_torch.prosody.measure import measure_voice
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio, read_wav
+
+    dev = torch.device(device)
+    base = tmp / "multi_voice"
+    texts, audio_s = {}, 0.0
+    t0 = time.perf_counter()
+    for name, seed, seconds in MULTI_VOICES:
+        texts[name], s = build_brute_voice(base, name, seed, FULL_SEGMENTS, seconds=seconds)
+        audio_s += s
+    print(f"multi-voice set: {len(MULTI_VOICES)} brute recordings of {FULL_SEGMENTS} segments, {audio_s:.1f} s of audio, "
+          f"made in {time.perf_counter() - t0:.1f} s; multiprocessing: true, denoise: mask")
+
+    cold_timer = profiling.StepTimer()
+    _, _, cold_s = drive_all_voices(base, texts, dev, "mask", cold_timer)
+    warm_timer = profiling.StepTimer()
+    reset_kernel_counts()
+    profiling.reset_phases()
+    with (Capture(batch_runner, "measure_all_voices") as cap_m, Capture(candidates, "topk_parabolic") as cap_a,
+          Capture(viterbi, "viterbi_path") as cap_b):
+        pipes, pre_pipes, warm_s = drive_all_voices(base, texts, dev, "mask", warm_timer)
+    counts = kernel_counts()
+    warm_phases = dict(profiling.PHASES)
+    print(f"multi-voice warm run launches: {json.dumps(counts)}")
+    if counts["pitch_candidates"] != 2 or counts["viterbi"] != 2:
+        raise SystemExit(f"multi-voice: kernels A and B must launch once per (T, rate) group (2), got {counts}")
+    if counts["run_measure_device"] != 0:
+        raise SystemExit(f"multi-voice: the per-voice measure pass ran {counts['run_measure_device']} times")
+    if counts["frames"] or counts["chunk_cumsum"] or counts["mask_ema"]:
+        raise SystemExit(f"multi-voice: no kernel C/D/E or mask_ema runs with denoise: mask, got {counts}")
+    for name in texts:
+        if len(pre_pipes[name].last_split) != FULL_SEGMENTS:
+            raise SystemExit(f"multi-voice {name}: {len(pre_pipes[name].last_split)} segments")
+        check_pipeline_artifacts(pipes[name], FULL_SEGMENTS, run_files=False)
+    batched = cap_m.results[0]
+    s_of = sorted(tuple(a[0].shape) for (a, _) in cap_b.calls)
+    print(f"multi-voice viterbi inputs per group (S, F, K): {s_of}")
+    # kernels A and B against their plain versions at each group's shapes
+    err_a, err_b = check_a_b(cap_a.calls, cap_b.calls, "multi-voice, one call per (T, rate) group")
+
+    # the batched rows against a per-voice measure_voice on the card
+    def per_voice():
+        return {n: measure_voice(p._segment_files(), p.textgrid_dir, p.raw_audio_dir, p.cfg.prosody,
+                                 clean_word=p.pos_backend.remove_spurious_commas, device=dev) for n, p in pipes.items()}
+
+    single = per_voice()
+    errs = {n: rows_close(batched[n].rows, single[n].rows, TOL_BATCHED) for n in pipes}
+    print(f"multi-voice batched vs per-voice measure_voice on the card: rows and syntagmes equal, max |diff| "
+          f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})} points (tol {TOL_BATCHED})")
+    alive = list(pipes.values())
+    batched_trace = profile_measure(lambda: batch_runner.measure_all_voices(alive))
+    single_trace = profile_measure(per_voice)
+
+    # kernel B at S = 30 (the three-voice group) beside S = 10 (the measure voice)
+    (d30, lf30, v30, fr30, vuv30, jump30), _ = max(cap_b.calls, key=lambda c: c[0][0].shape[0])
+    (d10, lf10, v10, fr10, vuv10, jump10) = b_s10_inputs
+    ms_b30 = cuda_ms(lambda: viterbi.viterbi_path(d30, lf30, v30, fr30, vuv30, jump30), reps=20)
+    ms_b10 = cuda_ms(lambda: viterbi.viterbi_path(d10, lf10, v10, fr10, vuv10, jump10), reps=20)
+    print(f"kernel viterbi at S = {d30.shape[0]} (the three-voice group, {tuple(d30.shape)}): {ms_b30:.4f} ms; at S = "
+          f"{d10.shape[0]} (the measure voice, {tuple(d10.shape)}): {ms_b10:.4f} ms (CUDA events, same run); card={card}")
+
+    # mask_ema on the mask of the 159.5 s recording (voice mv_a, seed 0: the pipeline phase's recording)
+    brute = read_wav(base / "Data" / "voice" / "mv_a" / "brute" / "segment.wav").to_mono()
+    x = torch.from_numpy(np.ascontiguousarray(brute.samples, np.float32)).to(dev)
+    m = denoise_mod.gate_mask(stft(x, 1024, 256))
+    got = mask_ema.mask_ema(m)
+    want = mask_ema.mask_ema_plain(m)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise SystemExit(f"mask_ema: {int((got != want).sum())} of {got.numel()} values differ from its plain version")
+    err_ema = float((got - want).abs().max())
+    ms_ema = graph_ms(lambda: mask_ema.mask_ema(m), reps=10)
+    plain_ema = cuda_ms(lambda: mask_ema.mask_ema_plain(m), reps=1, warmup=0)
+    bytes_ema = 2 * m.numel() * 4  # the mask read once, the result written once
+    bound_ema = bytes_ema / HBM_BYTES_PER_S * 1e3
+    print(f"kernel mask_ema: mask {tuple(m.shape)} of the {brute.duration_seconds:.1f} s recording, bit-equal to its plain "
+          f"version; ms={ms_ema:.4f} (CUDA-graph replay) bound_ms={bound_ema:.5f} (bytes {bytes_ema}) plain_ms={plain_ema:.1f} "
+          f"card={card}")
+
+    # the denoisers on the card against the CPU, on a 20 s excerpt, and their seconds per audio-second on the card
+    exc = Audio(np.asarray(brute.samples[: int(EXCERPT_S * brute.rate)], np.float32), brute.rate)
+    dn_card = denoise_mod.denoise(exc, device=dev).samples
+    dn_cpu = denoise_mod.denoise(exc, device="cpu").samples
+    dn_err = float(np.max(np.abs(dn_card - dn_cpu)))
+    if dn_err > TOL_DENOISE * float(np.max(np.abs(exc.samples))):
+        raise SystemExit(f"denoise: card vs CPU max |diff| {dn_err}")
+    sep_card = MaskSeparator(device=dev)
+    sp_card = sep_card.separate(exc).samples
+    sp_cpu = MaskSeparator(device="cpu").separate(exc).samples
+    sp_snr = si_snr_db(np.asarray(sp_card, np.float32), np.asarray(sp_cpu, np.float32))
+    if sp_card.shape != sp_cpu.shape or sp_snr < MIN_SEPARATE_SI_SNR:
+        raise SystemExit(f"MaskSeparator: card vs CPU SI-SNR {sp_snr} dB")
+    t0 = time.perf_counter()
+    denoise_mod.denoise(brute, device=dev)
+    dn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sep_card.separate(brute)
+    sp_s = time.perf_counter() - t0
+    print(f"denoisers on a {EXCERPT_S:.0f} s excerpt, card vs CPU: denoise max |diff| {dn_err:.3e} (limit {TOL_DENOISE} of "
+          f"the peak); MaskSeparator.separate SI-SNR {sp_snr:.1f} dB (limit {MIN_SEPARATE_SI_SNR}); on the "
+          f"{brute.duration_seconds:.1f} s recording on the card: denoise {dn_s:.3f} s "
+          f"({dn_s / brute.duration_seconds:.2e} s per audio-s), separate {sp_s:.3f} s ({sp_s / brute.duration_seconds:.2e} "
+          f"s per audio-s); card={card}")
+
+    # a 2-voice set in two groups with denoise: spectral, card against CPU
+    small, small_texts = tmp / "multi_voice_small", {}
+    for where in ("card", "cpu"):
+        for name, seed, seconds in (("sv_a", 1, (3.0, 5.0)), ("sv_b", 5, (1.0, 2.0))):
+            small_texts[name], _ = build_brute_voice(small / where, name, seed, 2, seconds=seconds)
+    reset_kernel_counts()
+    s_card, s_card_pre, _ = drive_all_voices(small / "card", small_texts, dev, "spectral")
+    spectral_counts = kernel_counts()
+    s_cpu, s_cpu_pre, _ = drive_all_voices(small / "cpu", small_texts, "cpu", "spectral")
+    print(f"multi-voice spectral (2 voices, 2 groups) card run launches: {json.dumps(spectral_counts)}")
+    if spectral_counts["mask_ema"] != len(small_texts) or spectral_counts["viterbi"] != 2:
+        raise SystemExit(f"multi-voice spectral: mask_ema once per voice and B once per group, got {spectral_counts}")
+    adj_err = 0.0
+    for name in small_texts:
+        a, b = s_card[name], s_cpu[name]
+        if s_card_pre[name].last_split != s_cpu_pre[name].last_split:
+            raise SystemExit(f"{name}: silence ranges card {s_card_pre[name].last_split} != CPU {s_cpu_pre[name].last_split}")
+        for tg in sorted(b.textgrid_dir.glob("*.TextGrid")):
+            if (a.textgrid_dir / tg.name).read_bytes() != tg.read_bytes():
+                raise SystemExit(f"{name}: TextGrid {tg.name} differs between card and CPU")
+        cols = lambda p: [(r["segment"], r["syntagme"], r["pause"]) for r in read_csv(p.bdd_syntagme_ssml_csv)]  # noqa: E731
+        if cols(a) != cols(b):
+            raise SystemExit(f"{name}: segment / syntagme / pause columns differ between card and CPU")
+        adj_err = max([adj_err] + [max(abs(x.pitch_smooth - y.pitch_smooth), abs(x.rate_smooth - y.rate_smooth),
+                                       abs(x.raw_volume - y.raw_volume))
+                                   for x, y in zip(a.last_measure.rows, b.last_measure.rows)])
+    if adj_err > 0.05:
+        raise SystemExit(f"multi-voice spectral: card vs CPU adjustments differ by {adj_err} points")
+    print(f"multi-voice spectral card vs CPU: ranges, TextGrids and segment/syntagme/pause columns equal; adjustments "
+          f"max |diff| {adj_err:.2e} points")
+
+    def split(timer):
+        out: dict = {}
+        for r in timer.records:
+            out[r["step"]] = round(out.get(r["step"], 0.0) + r["seconds"], 4)
+        return out
+
+    print(f"multi-voice eight steps, {len(MULTI_VOICES)} voices, {audio_s:.1f} s of audio (warm): {warm_s:.3f} s, "
+          f"{audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s, {audio_s / cold_s:.1f} audio-s/s; card={card}")
+    print("multi-voice steps warm (s, summed over the voices; the measure step once): " + json.dumps(split(warm_timer)))
+    print("multi-voice steps cold (s): " + json.dumps(split(cold_timer)))
+    print("multi-voice phases warm: " + json.dumps({k: round(v, 4) for k, v in sorted(warm_phases.items())}))
+    print(f"multi-voice measure (warm, profiled): batched {batched_trace['wall_ms'] / 1e3:.3f} s, device busy "
+          f"{batched_trace['device_busy_share']:.4f}; {len(pipes)} per-voice measure_voice calls {single_trace['wall_ms'] / 1e3:.3f} s, "
+          f"device busy {single_trace['device_busy_share']:.4f}; card={card}")
+    print("profile (batched measure): " + json.dumps(batched_trace))
+    print("profile (per-voice measure): " + json.dumps(single_trace))
+    row = dict(KERNEL_MASK_EMA, launches=spectral_counts["mask_ema"], max_abs_err=err_ema, ms=ms_ema, plain_ms=plain_ema,
+               bound_ms=bound_ema, bound_by="bytes", library_ms=None, check="pass")
+    return {"mask_ema": row, "launches": {"pitch_candidates": counts["pitch_candidates"], "viterbi": counts["viterbi"]},
+            "viterbi_s30_ms": ms_b30, "viterbi_s10_ms": ms_b10, "err_a": err_a, "err_b": err_b}
 
 
 # ---------------------------------------------------------------------------
@@ -2178,6 +2521,9 @@ def main() -> int:
         # -- 4. the eight-step voice pipeline --------------------------------
         pipe_counts = pipeline_phase(tmp, args.seed, card)
 
+        # -- 15. the multi-voice pipeline and its denoisers --------------------
+        mv = multi_voice_phase(tmp, card, cap_b.calls[0][0])
+
         # -- 5. kernels C/D and E against their plain versions, and their times
         cde_rows = kernels_cde_phase(seg_files, card)
         for row in cde_rows:
@@ -2186,20 +2532,9 @@ def main() -> int:
     # -- 6. kernels A and B vs plain on the measure path's own tensors ------
     (r, k, min_lag, max_lag, vth), _ = cap_a.calls[0]
     (delta, lf, voiced, freq, vuv, jump), _ = cap_b.calls[0]
-    got_a = candidates.topk_parabolic(r, k, min_lag, max_lag, vth)
-    want_a = candidates.topk_parabolic_plain(r, k, min_lag, max_lag, vth)
-    if not torch.equal(got_a[2], want_a[2]):
-        raise SystemExit("kernel A: valid differs from its plain version")
-    err_a = max(float((got_a[i] - want_a[i]).abs().max()) for i in (0, 1))
-    if err_a > TOL_A:
-        raise SystemExit(f"kernel A: max |err| {err_a} > {TOL_A}")
-    got_b = viterbi.viterbi_path(delta, lf, voiced, freq, vuv, jump)
-    want_b = viterbi.viterbi_path_plain(delta, lf, voiced, freq, vuv, jump)
-    err_b = float((got_b - want_b).abs().max())
-    if err_b > TOL_B:
-        raise SystemExit(f"kernel B: {int((got_b != want_b).sum())} frames differ from its plain version")
-    print(f"check: pitch_candidates r {tuple(r.shape)} max |err| {err_a:.3e} (tol {TOL_A}); "
-          f"viterbi {tuple(delta.shape)} max |err| {err_b} (exact)")
+    err_a, err_b = check_a_b(cap_a.calls, cap_b.calls, "the measure voice")
+    # the kernels line's max |err|: over the measure voice and the multi-voice groups
+    err_a, err_b = max(err_a, mv["err_a"]), max(err_b, mv["err_b"])
 
     # -- 7. timing of A and B ----------------------------------------------
     R, L = r.shape
@@ -2238,8 +2573,10 @@ def main() -> int:
         (KERNEL_B, launches["viterbi"], ms_b, plain_b, None, bytes_b, err_b),
     ):
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        extra_b = dict(floor, ms_s30=mv["viterbi_s30_ms"], ms_s10=mv["viterbi_s10_ms"]) if spec is KERNEL_B else {}
         rows_out.append(dict(spec, launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by="bytes", library_ms=lib_ms, check="pass", **(floor if spec is KERNEL_B else {})))
+                             bound_by="bytes", library_ms=lib_ms, check="pass",
+                             multi_voice_launches=mv["launches"][spec["name"]], **extra_b))
         extra = (f"; chain_floor_ms={floor['chain_floor_ms']:.4f} ({floor['chain_floor']}); "
                  f"the one-warp design: {B_PREVIOUS_MS} ms (PERF.md, not measured here)") if spec is KERNEL_B else (
             f" (CUDA-graph replay over two copies of r, L2 cold; on one copy {ms_a_one_copy:.4f}, between CUDA events "
@@ -2251,6 +2588,7 @@ def main() -> int:
               f"max_abs_err={err:.3e} card={card}{extra}")
 
     rows_out.extend(cde_rows)
+    rows_out.append(mv["mask_ema"])
     rows_out.append(llm_phases(args, card))
     rows_out.extend(train_phases(args, card))
 

@@ -12,8 +12,9 @@ The LLM's weights cross as trees of numpy arrays keyed as the flax tree is
 ``lm_head/kernel``). Kernels are ``[in, out]`` on both sides, so every leaf
 is copied and none is transposed; a leaf the port does not know raises.
 
-Later slices add here the ``.npz`` → ``state_dict`` converters of the JAX
-package's packaged checkpoints (the break tagger, the aligners).
+The packaged checkpoints cross as ``.npz`` → ``state_dict`` converters:
+``masknet_params_from_jax`` for the separator; later slices add the break
+tagger's and the aligners'.
 """
 
 from __future__ import annotations
@@ -142,3 +143,51 @@ def fused_params_from_jax(tree: dict) -> dict:
         "lm_head": weight(tree["lm_head"], "lm_head"),
         "layers": layers,
     }
+
+
+# ---------------------------------------------------------------------------
+# MaskNet (the learned separator of ``denoise: mask``)
+# ---------------------------------------------------------------------------
+
+_MASKNET_LEAF = re.compile(r"(Conv|LayerNorm|Dense)_(\d+)/(kernel|bias|scale)$")
+
+
+def masknet_params_from_jax(tree: dict) -> dict:
+    """Flax ``MaskNet`` tree of numpy arrays (``masknet.npz`` as read by
+    ``audio.separate.load_params``, with or without the outer ``params``) →
+    the ``state_dict`` of this port's ``audio.separate.MaskNet``. Flax conv
+    kernels ``[k, in, out]`` become ``[out, in, k]``, the dense kernel
+    ``[in, out]`` becomes ``[out, in]``; ``Conv_0`` is the input conv,
+    ``Conv_{i+1}`` and ``LayerNorm_i`` the residual block i, the last
+    ``LayerNorm`` the output norm. Every leaf is used exactly once: an
+    unknown, repeated or missing leaf raises."""
+    flat = _flatten(tree["params"] if "params" in tree else tree)
+    n_conv = 1 + max((int(m.group(2)) for m in map(_MASKNET_LEAF.match, flat) if m and m.group(1) == "Conv"), default=-1)
+    if n_conv < 1:
+        raise ValueError("masknet_params_from_jax: no Conv_0 in the tree")
+    out = {}
+    for key, val in flat.items():
+        m = _MASKNET_LEAF.match(key)
+        if m is None:
+            raise ValueError(f"masknet_params_from_jax: unknown leaf {key!r}")
+        kind, i, leaf = m.group(1), int(m.group(2)), m.group(3)
+        v = torch.from_numpy(np.asarray(val, np.float32).copy())
+        if kind == "Conv" and leaf in ("kernel", "bias"):
+            prefix = "conv_in" if i == 0 else f"convs.{i - 1}"
+            name, v = (f"{prefix}.weight", v.permute(2, 1, 0).contiguous()) if leaf == "kernel" else (f"{prefix}.bias", v)
+        elif kind == "LayerNorm" and leaf in ("scale", "bias"):
+            prefix = "norm_out" if i == n_conv - 1 else f"norms.{i}"
+            name = f"{prefix}.{'weight' if leaf == 'scale' else 'bias'}"
+        elif kind == "Dense" and i == 0 and leaf in ("kernel", "bias"):
+            name, v = ("dense.weight", v.T.contiguous()) if leaf == "kernel" else ("dense.bias", v)
+        else:
+            raise ValueError(f"masknet_params_from_jax: unknown leaf {key!r}")
+        if name in out:
+            raise ValueError(f"masknet_params_from_jax: {key!r} maps onto {name!r} twice")
+        out[name] = v
+    want = {"conv_in.weight", "conv_in.bias", "norm_out.weight", "norm_out.bias", "dense.weight", "dense.bias"}
+    for i in range(n_conv - 1):
+        want |= {f"convs.{i}.weight", f"convs.{i}.bias", f"norms.{i}.weight", f"norms.{i}.bias"}
+    if set(out) != want:
+        raise ValueError(f"masknet_params_from_jax: missing {sorted(want - set(out))}, extra {sorted(set(out) - want)}")
+    return out

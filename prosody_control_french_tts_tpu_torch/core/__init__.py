@@ -1,1 +1,2 @@
-"""Core: phase timing and the pipeline's measure-and-SSML step."""
+"""Core: configuration, phase timing, the voice pipeline, the multi-voice
+runner and the synchronized-SSML flow."""

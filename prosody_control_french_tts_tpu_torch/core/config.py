@@ -3,9 +3,12 @@
 Port of the JAX package's ``core/config.py``: one dataclass tree with the
 reference's keys and defaults, real ``${ENV_VAR}`` interpolation in every
 string value, and the framework's extra keys (``tts_backend``, ``aligner``,
-``pos_backend``). Keys that only unported parts read (the Azure key and
-region, Whisper, the per-voice process pool, A/B tests) stay in ``raw``,
-which ``used_config.yaml`` writes. ``load_config`` reads YAML and imports
+``pos_backend``). ``multiprocessing: true`` with more than one voice sends
+``main()`` through ``core.batch_runner`` (one batched measure pass for
+every voice, the counterpart of the reference's process pool). Keys that
+only unported parts read (the Azure key and region, Whisper, the pool's
+``num_processes``, A/B tests) stay in ``raw``, which ``used_config.yaml``
+writes. ``load_config`` reads YAML and imports
 PyYAML inside the function: only the command line needs it.
 """
 
@@ -50,6 +53,7 @@ class PipelineConfig:
     silence: SilenceSettings = field(default_factory=SilenceSettings)
     prosody: ProsodySettings = field(default_factory=ProsodySettings)
     steps_to_run: list[str] | None = None
+    multiprocessing: bool = False
     # framework extensions (absent from reference configs → defaults)
     tts_backend: str = "azure"  # azure | fake
     aligner: str = "precomputed"  # precomputed | energy | ctc | whisper_jax
@@ -84,6 +88,7 @@ class PipelineConfig:
             ),
             prosody=ProsodySettings.from_config(cfg),
             steps_to_run=cfg.get("steps_to_run"),
+            multiprocessing=bool(cfg.get("multiprocessing", False)),
             tts_backend=cfg.get("tts_backend", "azure"),
             aligner=cfg.get("aligner", "precomputed"),
             pos_backend=cfg.get("pos_backend", "lexicon"),

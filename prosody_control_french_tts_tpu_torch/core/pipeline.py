@@ -12,18 +12,20 @@ conventions and artifacts are the same, so voice layouts and
     Out/results/<name>/{BDD_ssml.csv,BDD_syntagme_ssml.csv,
                         BDD_syntagme_for_synth.csv,OUT.wav,...}
 
-The steps: 1 Preprocess (identity denoise or ``denoise_command``, then the
-silence split, ``ops.energy``, on the device); 2 Align+Transcribe (the
+The steps: 1 Preprocess (the spectral gate or the MaskNet separator on the
+device, or a ``denoise_command`` on the host, or identity; then the silence
+split, ``ops.energy``, on the device); 2 Align+Transcribe (the
 ``energy`` aligner on the device, or ``precomputed`` TextGrids); 3 Raw
 Synthesis; 4 Measure & Build SSML (``prosody.measure`` on the device,
 kernels A and B, then the three BDD CSVs); 5 Synthesize+Merge; 6 Export
 JSON; 7 Final Transcribe (the energy aligner over OUT.wav); 8 Compare
 Breaks. ``AudioPipeline(name, cfg, device="cuda").run()`` is the entry
-point; the device reaches the silence scan, both energy-aligner calls and
-the measure step.
+point; the device reaches the denoisers, the silence scan, both
+energy-aligner calls and the measure step. ``main()`` runs every voice of a
+config, with ``multiprocessing: true`` through ``core.batch_runner`` (one
+batched measure pass for all voices).
 
-Not ported: the spectral and mask denoisers (refused when the pipeline is
-built), the acoustic aligners (CTC, Whisper), the Azure backend (a
+Not ported: the acoustic aligners (CTC, Whisper), the Azure backend (a
 backend object may be passed in), the contextual POS tagger, and the
 JAX package's corpus prefetch hooks, which move no result.
 ``measure_and_build_ssml`` runs step 4 alone.
@@ -44,6 +46,8 @@ import numpy as np
 
 from ..align.base import get_aligner
 from ..align.energy import EnergyAligner
+from ..audio.denoise import denoise as spectral_denoise
+from ..audio.separate import MaskSeparator
 from ..eval.breaks import compare_breaks
 from ..models.pos_tagger import get_pos_backend
 from ..ops.energy import split_on_silence_ranges
@@ -149,11 +153,6 @@ class AudioPipeline:
 
     def __init__(self, name: str, cfg: PipelineConfig, tts: TTSBackend | None = None, device="cuda"):
         self.device = resolve_device(device)
-        denoise = cfg.raw.get("denoise")
-        if denoise in ("spectral", "mask"):
-            raise NotImplementedError(
-                f"denoise: {denoise} is not ported to PyTorch yet; use the identity denoiser or a denoise_command"
-            )
         self.name = name
         self.cfg = cfg
         # written by run() after the steps; a config the emitter cannot write
@@ -201,10 +200,15 @@ class AudioPipeline:
 
     # 1 ------------------------------------------------------------------
     def preprocess(self):
-        """Denoise hook + silence split. The default denoiser is identity (a
-        hard link); ``denoise_command`` (a subprocess given {input} and
-        {output} wav paths) replaces it, and on its failure the original is
-        copied, as the reference's Demucs step does."""
+        """Denoise + silence split. ``denoise: spectral`` (the quantile
+        spectral gate, ``audio.denoise``) and ``denoise: mask`` (the MaskNet
+        separator, ``audio.separate``; ``denoise_options`` go to
+        ``MaskSeparator``) run on the pipeline's device, and a failure of
+        either raises: unlike the JAX package, the original is not copied in
+        their place. Otherwise ``denoise_command`` (a subprocess on the host,
+        given {input} and {output} wav paths) runs, and on its failure the
+        original is copied, as the reference's Demucs step does; without it
+        the denoiser is identity (a hard link)."""
         log.info(">>> Preprocess: denoise + silence-split")
         brute = None
         for cand in ("segment.wav", "segment_demucs.wav", "segment.mp3"):
@@ -223,7 +227,15 @@ class AudioPipeline:
         # every branch starts from a clean slate
         denoised.unlink(missing_ok=True)
         cmd = self.cfg.raw.get("denoise_command")
-        if cmd:
+        denoiser = self.cfg.raw.get("denoise")
+        if denoiser == "spectral":
+            with phase("preprocess/denoise"):
+                write_wav(denoised, spectral_denoise(read_wav(brute), device=self.device))
+        elif denoiser == "mask":
+            with phase("preprocess/denoise"):
+                sep = MaskSeparator(**self.cfg.raw.get("denoise_options", {}), device=self.device)
+                write_wav(denoised, sep.separate(read_wav(brute)))
+        elif cmd:
             try:
                 subprocess.run(
                     [c.format(input=str(brute), output=str(denoised)) for c in cmd], check=True, timeout=3600
@@ -442,11 +454,9 @@ class AudioPipeline:
         return report
 
     # ------------------------------------------------------------------
-    def run(self) -> StepTimer:
-        """The steps of ``cfg.steps_to_run`` (all eight by default), in order;
-        then ``used_config.yaml`` and ``step_timings.jsonl`` in the results
-        directory. Returns the step timer."""
-        steps = dict(zip(self.STEP_NAMES, (
+    def step_fn(self, name: str):
+        """The bound method of the step called ``name`` (one of STEP_NAMES)."""
+        return dict(zip(self.STEP_NAMES, (
             self.preprocess,
             self.align_and_transcribe,
             self.raw_synthesis,
@@ -455,7 +465,12 @@ class AudioPipeline:
             self.export_training_json,
             self.final_transcribe,
             self.compare_breaks,
-        )))
+        )))[name]
+
+    def run(self) -> StepTimer:
+        """The steps of ``cfg.steps_to_run`` (all eight by default), in order;
+        then ``used_config.yaml`` and ``step_timings.jsonl`` in the results
+        directory. Returns the step timer."""
         to_run = self.cfg.steps_to_run or self.STEP_NAMES
         timer = StepTimer()
         for name in self.STEP_NAMES:
@@ -464,7 +479,7 @@ class AudioPipeline:
             log.info("[%s] step: %s", self.name, name)
             try:
                 with timer.step(name, voice=self.name):
-                    steps[name]()
+                    self.step_fn(name)()
             except Exception:
                 log.exception("Failed step %s", name)
                 timer.dump(self.results_dir / "step_timings.jsonl")
@@ -493,9 +508,11 @@ def run_pipeline_for_voice(name: str, cfg: PipelineConfig, tts: TTSBackend | Non
 
 def main(argv: list[str] | None = None):
     """``python -m prosody_control_french_tts_tpu_torch.core.pipeline
-    --config config.yaml``: every voice of the config, one after another.
-    The reference's per-voice process pool (``multiprocessing``) is not
-    ported; its results are those of the sequential runs."""
+    --config config.yaml``: every voice of the config. With more than one
+    voice and ``multiprocessing: true`` (the reference's process pool), the
+    voices go through ``core.batch_runner.run_all_voices``: host steps voice
+    by voice, one batched measure pass for all of them. Otherwise the voices
+    run one after another."""
     import argparse
 
     from .config import load_config
@@ -511,7 +528,13 @@ def main(argv: list[str] | None = None):
     if not voices:
         print("Missing 'voice_names' in config.yaml", file=sys.stderr)
         sys.exit(1)
-    results = [run_pipeline_for_voice(v, cfg, device=args.device) for v in voices]
+    if cfg.multiprocessing and len(voices) > 1:
+        from .batch_runner import run_all_voices
+
+        cfg.voice_names = list(voices)
+        results = run_all_voices(cfg, device=args.device)
+    else:
+        results = [run_pipeline_for_voice(v, cfg, device=args.device) for v in voices]
     failed = [n for ok, n in results if not ok]
     if failed:
         print(f"Some pipelines failed: {', '.join(failed)}", file=sys.stderr)

@@ -1,2 +1,2 @@
 """Tensor ops of the port: PCM, prefix sums, range maxima, loudness, pitch,
-and the wrappers of the CUDA kernels."""
+the STFT family, and the wrappers of the CUDA kernels."""

@@ -1,4 +1,4 @@
-"""Prosody measurement of one voice, in PyTorch.
+"""Prosody measurement of one voice, or of every voice at once, in PyTorch.
 
 Port of the JAX package's ``prosody/measure.py``. The whole voice is loaded
 into two padded corpora (natural [S, T], raw synthetic [S, T2]); two eager
@@ -9,6 +9,10 @@ device passes on one stream compute
   syntagme window and over each segment, and gated LUFS of every syntagme
   window with the full-file fallback;
 - the raw side: the same gated LUFS.
+
+``measure_voices_batched`` runs the same passes once per (padded length,
+rate) group over every voice of a corpus, the voices concatenated on the
+segment axis (the multi-voice pipeline, ``core.batch_runner``).
 
 Durations, word counts and the clamp/smooth math run on the host
 (``prosody.adjust``); host work is otherwise file I/O, TextGrid parsing and
@@ -308,10 +312,15 @@ def prepare_voice(
     )
 
 
+run_measure_device_calls = 0  # calls of the per-voice device pass
+
+
 def run_measure_device(prep: PreparedVoice, pp: PitchParams, device="cuda"):
     """The two device passes (natural side, then raw side), eager on one
     stream. Returns the six host arrays (p_syn, p_seg, l_nat_syn,
     l_nat_seg, l_raw_syn, l_raw_seg)."""
+    global run_measure_device_calls
+    run_measure_device_calls += 1
     dev = resolve_device(device)
     dsp_precision()
 
@@ -435,3 +444,115 @@ def measure_voice(
         outputs = run_measure_device(prep, pp, device)
     with phase("measure/postprocess"):
         return postprocess_voice(prep, outputs, settings)
+
+
+# ---------------------------------------------------------------------------
+# every voice of a corpus at once
+# ---------------------------------------------------------------------------
+
+
+def _pack6(outs) -> torch.Tensor:
+    """The six measure outputs as one [S, 3N+3] buffer, so a group is read
+    back to the host in one copy. Columns: p_syn | p_seg | l_nat_syn |
+    l_nat_seg | l_raw_syn | l_raw_seg."""
+    p_syn, p_seg, l_nat_syn, l_nat_seg, l_raw_syn, l_raw_seg = outs
+    return torch.cat(
+        [p_syn, p_seg[:, None], l_nat_syn, l_nat_seg[:, None], l_raw_syn, l_raw_seg[:, None]], dim=1
+    )
+
+
+def _unpack6(arr: np.ndarray):
+    """Host: inverse of _pack6. arr [S, 3N+3] → the six output arrays."""
+    n = (arr.shape[1] - 3) // 3
+    return (
+        arr[:, :n],
+        arr[:, n],
+        arr[:, n + 1 : 2 * n + 1],
+        arr[:, 2 * n + 1],
+        arr[:, 2 * n + 2 : 3 * n + 2],
+        arr[:, 3 * n + 2],
+    )
+
+
+def _pack_group(items, dev: torch.device):
+    """One group's voices on the device, concatenated on the segment axis:
+    audio padded to the group's T and T2 (int16 kept only when every voice
+    of the group has it), windows and mask padded to the group's N."""
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+    def pad_cols(t: torch.Tensor, n: int) -> torch.Tensor:
+        if t.shape[1] == n:
+            return t
+        return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1]) + tuple(t.shape[2:]))], dim=1)
+
+    def audio(arrays, width):
+        mixed = len({a.dtype for a in arrays}) > 1
+        return torch.cat([pad_cols(_as_f32(put(a)) if mixed else put(a), width) for a in arrays])
+
+    preps = [p for _, p in items]
+    T = max(p.nat.shape[1] for p in preps)
+    T2 = max(p.raw_for_device.shape[1] for p in preps)
+    N = max(p.win_nat.shape[1] for p in preps)
+    return dict(
+        nat=audio([p.nat for p in preps], T),
+        nat_len=torch.cat([put(p.nat_len, torch.int64) for p in preps]),
+        win_nat=torch.cat([pad_cols(put(p.win_nat, torch.int64), N) for p in preps]),
+        mask=torch.cat([pad_cols(put(p.mask), N) for p in preps]),
+        raw=audio([p.raw_for_device for p in preps], T2),
+        raw_len=torch.cat([put(p.raw_len_dev, torch.int64) for p in preps]),
+        win_raw=torch.cat([pad_cols(put(p.win_raw_dev, torch.int64), N) for p in preps]),
+        T=T,
+        T2=T2,
+    )
+
+
+def measure_voices_batched(
+    preps: dict[str, PreparedVoice],
+    settings: ProsodySettings,
+    pitch_params: PitchParams | None = None,
+    device="cuda",
+) -> dict[str, MeasureResult]:
+    """Every voice of a corpus through the device passes, one pass per
+    (padded T, sample rate) group: the voices of a group concatenate on the
+    segment axis (windows padded to the group's maxima), so kernels A and B
+    launch once per group. Every group's work is enqueued before the first
+    read back to the host; then one packed buffer per group comes back and
+    is sliced by each voice's own segment and window counts. Baselines and
+    smoothing stay per voice (``postprocess_voice``), so the results are
+    those of per-voice runs.
+
+    Groups are keyed by the padded T because the pitch frame grid is centred
+    over the padded buffer, and by the rate because one rate serves a whole
+    pass. This is the counterpart of the reference's process pool (one
+    pipeline per voice and per OS process)."""
+    dev = resolve_device(device)
+    dsp_precision()
+    pp = pitch_params or PitchParams()
+    groups: dict[tuple[int, int], list] = {}
+    for name, prep in preps.items():
+        groups.setdefault((prep.nat.shape[1], int(prep.rate)), []).append((name, prep))
+
+    pending = []
+    for (_, rate), items in groups.items():
+        with phase("measure/device/to_device"):
+            g = _pack_group(items, dev)
+        with phase("measure/device/nat"):
+            nat_out = measure_nat(g["nat"], g["nat_len"], g["win_nat"], g["mask"], float(rate), g["T"], pp)
+        with phase("measure/device/raw"):
+            raw_out = measure_raw(g["raw"], g["raw_len"], g["win_raw"], float(rate), g["T2"])
+        pending.append((items, _pack6((*nat_out, *raw_out))))
+
+    results: dict[str, MeasureResult] = {}
+    for items, packed in pending:
+        with phase("measure/device/wait"):
+            out = _unpack6(packed.cpu().numpy())
+        offset = 0
+        for name, prep in items:
+            S, Nv = prep.nat.shape[0], prep.win_nat.shape[1]
+            sl = tuple(o[offset : offset + S, :Nv] if o.ndim == 2 else o[offset : offset + S] for o in out)
+            with phase("measure/postprocess"):
+                results[name] = postprocess_voice(prep, sl, settings)
+            offset += S
+    return results

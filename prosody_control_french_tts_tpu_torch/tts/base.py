@@ -13,6 +13,15 @@ from typing import Protocol, runtime_checkable
 from ..utils.wavio import Audio
 
 
+class TTSError(RuntimeError):
+    """Synthesis failure; ``code`` mirrors Azure cancellation error codes
+    (the reference special-cases 1007, synthesize_ssml_voice.py:217-228)."""
+
+    def __init__(self, message: str, code: int | None = None):
+        super().__init__(message)
+        self.code = code
+
+
 @runtime_checkable
 class TTSBackend(Protocol):
     sample_rate: int

@@ -26,7 +26,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert len(mods) >= 25
     for name in ("ops.vmem_attn", "ops.fused_ce", "models.training", "ops.frames", "ops.chunk_cumsum", "ops.energy",
-                 "core.pipeline", "core.config", "align.energy", "tts.fake", "ssml.parse", "eval.breaks"):
+                 "core.pipeline", "core.config", "align.energy", "tts.fake", "ssml.parse", "eval.breaks",
+                 "ops.stft", "ops.mask_ema", "audio.denoise", "audio.separate", "audio.merge", "core.batch_runner",
+                 "core.synchronized", "tts.batch"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from prosody_control_french_tts_tpu_torch.ops import (
-    candidates, chunk_cumsum, decode_attn, flash_attention, frames, fused_ce, viterbi, vmem_attn,
+    candidates, chunk_cumsum, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
 )
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
@@ -917,3 +917,49 @@ def test_chunk_cumsum_wrapper_checks(cuda):
         chunk_cumsum.chunk_cumsum(torch.zeros((8, 1024), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         chunk_cumsum.chunk_cumsum(torch.zeros((1024, 8), device=cuda).t())
+
+
+# ---------------------------------------------------------------------------
+# mask_ema (the spectral gate's two-way time smoothing; no TPU kernel)
+# ---------------------------------------------------------------------------
+
+
+def mask_fixture(F, T, seed):
+    """A gate-like mask: sigmoid values, exact zeros and ones, and values
+    whose products by smooth fall below float32's normal range."""
+    rng = np.random.default_rng(seed)
+    m = (1.0 / (1.0 + np.exp(-rng.normal(scale=4.0, size=(F, T))))).astype(np.float32)
+    m[:, ::13] = 0.0
+    m[::3, 5::17] = 1.0
+    m[::7, 3::11] = 3e-38
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(513, 1), (513, 2), (513, 31), (513, 32), (513, 33), (513, 347), (1, 100), (33, 1000),
+                                   (64, 257), (513, 27478)])
+@pytest.mark.parametrize("smooth", [0.5, 0.3])
+def test_mask_ema_kernel_equals_plain(cuda, shape, smooth):
+    """Bit for bit (every multiply and add rounded on its own in both), at
+    edge tile counts, with a partial last block of bins (513 = 16 x 32 + 1)
+    and at the 159.5 s recording's 27,478 frames."""
+    m = torch.from_numpy(mask_fixture(*shape, seed=shape[0] * 7 + shape[1])).to(cuda)
+    want = mask_ema.mask_ema_plain(m, smooth)
+    n = mask_ema.launches
+    got = mask_ema.mask_ema(m, smooth)
+    torch.cuda.synchronize()
+    assert mask_ema.launches == n + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_mask_ema_kernel_is_deterministic_and_checks(cuda):
+    m = torch.from_numpy(mask_fixture(513, 4000, seed=1)).to(cuda)
+    a, b = mask_ema.mask_ema(m), mask_ema.mask_ema(m)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(TypeError):
+        mask_ema.mask_ema(m.double())
+    with pytest.raises(ValueError):
+        mask_ema.mask_ema(m.t())
+    with pytest.raises(ValueError):
+        mask_ema.mask_ema(m[None])

@@ -257,7 +257,7 @@ def test_brute_textgrid_words(brute_runs):
 
 
 # ---------------------------------------------------------------------------
-# configuration, command line, what the port refuses
+# configuration, command line, the denoisers, what the port refuses
 # ---------------------------------------------------------------------------
 
 
@@ -276,6 +276,7 @@ def test_config_matches_jax(tmp_path, monkeypatch):
         assert getattr(t, f) == getattr(j, f), f
     # keys of unported parts live only in raw, as the reference reads them
     assert t.raw["multiprocessing"] == j.multiprocessing and t.raw["ab_test"] is None
+    assert t.multiprocessing is j.multiprocessing is True
     assert vars(t.silence) == vars(j.silence)
     assert vars(t.prosody) == vars(j.prosody)
     assert t.voice_names == ["envvoice"]
@@ -306,15 +307,75 @@ def test_load_config_and_main(tmp_path):
 
 
 @pytest.mark.parametrize("raw,exc,match", [
-    ({"denoise": "spectral"}, NotImplementedError, "spectral"),
-    ({"denoise": "mask"}, NotImplementedError, "mask"),
-    ({"tts_backend": "azure"}, NotImplementedError, "network"),
-    ({"pos_backend": "contextual"}, NotImplementedError, "item 12"),
+    pytest.param({"tts_backend": "azure"}, NotImplementedError, "network", id="raw2-NotImplementedError-network"),
+    pytest.param({"pos_backend": "contextual"}, NotImplementedError, "item 12",
+                 id="raw3-NotImplementedError-item 12"),
 ])
 def test_pipeline_refuses_what_is_not_ported(tmp_path, raw, exc, match):
     cfg = TConfig.from_dict(dict({"tts_backend": "fake"}, **raw), tmp_path)
     with pytest.raises(exc, match=match):
         TPipeline("v", cfg, device="cpu")
+
+
+DENOISE_CFG = {"data_dir": "Data/voice", "out_dir": "Out", "voice_names": ["dn"], "tts_backend": "fake",
+               "aligner": "energy", "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300}}
+
+
+@pytest.mark.parametrize("denoise", ["spectral", "mask"])
+def test_preprocess_denoiser_matches_jax(tmp_path, denoise):
+    """Preprocess with ``denoise: spectral`` or ``mask`` on the CPU: the
+    same split ranges as the JAX pipeline's, and a denoised recording
+    within the denoisers' own bounds of the JAX one (spectral: 1e-5 of the
+    peak before the 16-bit write, so within 2 LSB after it; mask: SI-SNR
+    of 30 dB, tests/test_torch_separate.py)."""
+    from prosody_control_french_tts_tpu.audio.separate import si_snr_db
+
+    cfg = dict(DENOISE_CFG, denoise=denoise)
+    pipes = []
+    for kind in ("jax", "torch"):
+        base = tmp_path / kind
+        _brute(base, "dn")
+        if kind == "jax":
+            pipe = JPipeline("dn", JConfig.from_dict(cfg, base), tts=JFake(seed=1))
+        else:
+            pipe = TPipeline("dn", TConfig.from_dict(cfg, base), tts=TFake(seed=1), device="cpu")
+        pipe.preprocess()
+        pipes.append(pipe)
+    jp, tp = pipes
+    a = jwav.read_wav(jp.voice_dir / "brute" / "segment_denoised.wav").to_mono()
+    b = twav.read_wav(tp.voice_dir / "brute" / "segment_denoised.wav")
+    # the JAX pipeline keeps no ranges: its split of its own denoised file
+    assert tp.last_split == jenergy.split_on_silence_ranges(np.asarray(a.samples, np.float32), a.rate, 1000, -50, 300)
+    assert len(tp.last_split) == 2
+    for seg in ("segment_ph1.wav", "segment_ph2.wav"):
+        assert jwav.read_wav(jp.voice_dir / "audio" / seg).samples.shape == twav.read_wav(tp.voice_dir / "audio" / seg).samples.shape
+    assert a.rate == b.rate and a.samples.shape == b.samples.shape
+    x, y = np.asarray(a.samples, np.float32), np.asarray(b.samples, np.float32)
+    assert not np.array_equal(y, np.asarray(twav.read_wav(tp.voice_dir / "brute" / "segment.wav").samples, np.float32))
+    if denoise == "spectral":
+        assert np.max(np.abs(x - y)) <= 2.0 / 32768
+    else:
+        assert si_snr_db(y, x) >= 30.0
+    assert sorted(p.name for p in (tp.voice_dir / "audio").glob("*.wav")) == ["segment_ph1.wav", "segment_ph2.wav"]
+
+
+@pytest.mark.parametrize("denoise", ["spectral", "mask"])
+def test_failing_denoiser_raises(tmp_path, monkeypatch, denoise):
+    """A denoiser that fails fails the step: the original is not copied in
+    its place (the JAX package copies it)."""
+    _brute(tmp_path, "dn")
+    cfg = dict(DENOISE_CFG, denoise=denoise)
+    if denoise == "mask":
+        cfg["denoise_options"] = {"weights_path": str(tmp_path / "missing.npz")}
+    else:
+        def broken(*a, **k):
+            raise RuntimeError("denoiser broke")
+
+        monkeypatch.setattr(tpipeline, "spectral_denoise", broken)
+    pipe = TPipeline("dn", TConfig.from_dict(cfg, tmp_path), tts=TFake(seed=1), device="cpu")
+    with pytest.raises((RuntimeError, FileNotFoundError)):
+        pipe.preprocess()
+    assert not (pipe.voice_dir / "brute" / "segment_denoised.wav").exists()
 
 
 @pytest.mark.parametrize("value", [
