@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one CUDA card: the measure-and-SSML step, the
 eight-step voice pipeline, the multi-voice pipeline with its denoisers, the
 standalone frame and cumsum kernels, the LLM
-serving path and the LLM training path (LoRA fine-tuning, at L 512 with
-kernel G and at L 1024 / 768 with the flash attention).
+serving path, the LLM training path (LoRA fine-tuning, at L 512 with
+kernel G and at L 1024 / 768 with the flash attention), and the acoustic
+aligners (Whisper, CTC) alone and in the eight-step pipeline.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -98,10 +99,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It
 While the kernels build, one more ``nvcc -Xptxas -v`` compile each of
 ``csrc/vmem_attn.cu``, ``csrc/fused_ce.cu``, ``csrc/decode_attn.cu``,
 ``csrc/viterbi.cu``, ``csrc/flash_attention.cu``, ``csrc/pitch_candidates.cu``,
-``csrc/chunk_cumsum.cu`` and ``csrc/mask_ema.cu`` reports the registers,
-spills and shared memory of kernel G's bfloat16 kernels and of all of
-kernels H's, F's, B's, the flash attention's, A's (each per-lane
-instantiation), E's and mask_ema's.
+``csrc/chunk_cumsum.cu``, ``csrc/mask_ema.cu`` and ``csrc/ctc_viterbi.cu``
+reports the registers, spills and shared memory of kernel G's bfloat16
+kernels and of all of kernels H's, F's, B's, the flash attention's, A's
+(each per-lane instantiation), E's, mask_ema's and ctc_viterbi's.
 
 15. (run right after phase 4) the multi-voice pipeline, ``multiprocessing:
     true``, at full width: four brute recordings at 44.1 kHz of 10 segments
@@ -128,9 +129,35 @@ instantiation), E's and mask_ema's.
     profiled, with its device-busy share), kernel B at S = 30 beside S = 10,
     and the denoisers' seconds per audio-second on the card.
 
+16. the packaged Whisper aligner (``WhisperAligner()``, the JAX bench's
+    whisper_align shape: 12 held-out synthetic sentences, seed 900000,
+    transcript-free ``align_batch``) cold and warm, with the warm call split
+    into mel, encoder with cross K/V, greedy loop (steps taken) and DTW spans
+    (CUDA events) and its device-busy share (torch.profiler); the JAX
+    package's gate (``boundary_error_ms`` over 8 held-out sentences, seed
+    555000: < 80 ms, word accuracy > 0.85); card against CPU on three clips
+    (equal words, boundaries within 20 ms);
+17. the decode pass (``make_greedy_spans_fn``) at ``WhisperConfig.small()``
+    widths with random weights made on the card, batch 16, the full 128
+    steps: ms a decode step, seconds a call, peak device memory (timing
+    only);
+18. the packaged CTC aligner: the JAX package's gate (6 held-out sentences,
+    seed 555000: < 80 ms) and card against CPU on three clips;
+19. the eight steps on a brute recording of synthetic French sentences (10
+    segments of 8–23 s, the sentences 0.5–0.9 s apart, the segments 1.5 s of
+    zeros apart, resampled to 44.1 kHz with ``utils.wavio.resample``) with
+    ``aligner: whisper`` (transcript-free) cold and warm, each on a fresh copy
+    of the voice, and with ``aligner: ctc`` (the sentences as raw
+    transcripts): launches counted (A and B once, ``ctc_viterbi`` once a
+    segment and once for Final Transcribe), the artifacts checked, the
+    segments' words against the gold spans; then ``ctc_viterbi`` held bit for
+    bit to its plain version on every call captured in phases 18 and 19, and
+    timed on the Final Transcribe call beside its plain version, its bytes
+    bound and its chain's floor.
+
 It prints the card's name and power limit, one line per kernel, a
-``{"kernels": [...]}`` line with thirteen entries (mask_ema, which replaces
-no TPU kernel, among them), and last ``{"ok": true,
+``{"kernels": [...]}`` line with fourteen entries (mask_ema and ctc_viterbi,
+which replace no TPU kernel, among them), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -304,7 +331,7 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu", "flash_attention.cu", "pitch_candidates.cu",
-                 "chunk_cumsum.cu", "mask_ema.cu")
+                 "chunk_cumsum.cu", "mask_ema.cu", "ctc_viterbi.cu")
 
 
 def start_ptxas_report():
@@ -361,9 +388,9 @@ def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
 
 
 def print_ptxas_report(procs, lib) -> None:
-    """Seven lines: registers, spills and stack of each bfloat16 kernel of G,
+    """Eight lines: registers, spills and stack of each bfloat16 kernel of G,
     of every kernel of H, of F, of B, of the flash attention and of every
-    instantiation of A and E (from ptxas), the dynamic shared memory each
+    instantiation of A, E and ctc_viterbi (from ptxas), the dynamic shared memory each
     asks for at launch (``vmem_attn_bf16_smem_bytes``, ``fused_ce_smem_bytes``,
     ``decode_attn_smem_bytes`` at the serving shapes, ``viterbi_smem_bytes``,
     ``flash_attn_smem_bytes``, ``pitch_candidates_smem_bytes`` at the measure
@@ -450,6 +477,14 @@ def print_ptxas_report(procs, lib) -> None:
         row["dynamic_smem"] = 8 * 32 * 33 * 4  # kDepth tiles of [32 bins x 33 words]
         row["blocks_per_sm"] = blocks_per_sm(row["registers"], 32, row["dynamic_smem"])
     print("ptxas: mask_ema kernel: " + json.dumps(report))
+    report = ptxas_rows(texts["ctc_viterbi.cu"], r"(ctc_viterbi_kernel)ILi(\d+)E")
+    if len(report) != 4:
+        raise SystemExit(f"{len(report)} of the 4 ctc_viterbi kernels in the ptxas report:\n{texts['ctc_viterbi.cu'][-2000:]}")
+    for name, row in report.items():
+        k = int(re.search(r"<(\d+)>", name).group(1))
+        row["max_states"] = 1024 * k
+        row["blocks_per_sm_at_1024_threads"] = blocks_per_sm(row["registers"], 1024, 0)
+    print("ptxas: ctc_viterbi kernels (<states a thread>; static shared memory only): " + json.dumps(report))
 
 
 def viterbi_chain_floor(lib, F: int, K: int) -> dict:
@@ -685,11 +720,12 @@ def drive_voice(base: Path, name: str, texts, device) -> tuple:
     return pipe, pre + rest, pre_s + rest_s
 
 
-def check_pipeline_artifacts(pipe, n_segments: int, run_files: bool = True) -> None:
+def check_pipeline_artifacts(pipe, n_segments: int, run_files: bool = True, aligner: str = "energy") -> None:
     """The artifacts of the JAX package's end-to-end test
     (tests/test_pipeline_e2e.py), each present and well formed.
-    ``run_files``: also ``step_timings.jsonl`` and ``used_config.yaml``,
-    which ``AudioPipeline.run`` writes (the multi-voice runner does not)."""
+    ``run_files``: also ``step_timings.jsonl`` and ``used_config.yaml``
+    (with the run's ``aligner``), which ``AudioPipeline.run`` writes (the
+    multi-voice runner does not)."""
     import numpy as np
 
     from prosody_control_french_tts_tpu_torch.utils.textgridio import read_textgrid
@@ -748,7 +784,7 @@ def check_pipeline_artifacts(pipe, n_segments: int, run_files: bool = True) -> N
     if not run_files:
         return
     steps = [json.loads(line)["step"] for line in (res / "step_timings.jsonl").read_text().splitlines()]
-    if not steps or not (res / "used_config.yaml").read_text(encoding="utf-8").startswith("aligner: energy"):
+    if not steps or not (res / "used_config.yaml").read_text(encoding="utf-8").startswith(f"aligner: {aligner}"):
         raise SystemExit("pipeline: step_timings.jsonl or used_config.yaml")
 
 
@@ -2412,6 +2448,369 @@ def train_phases(args, card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the acoustic aligners (Whisper, CTC) and the eight-step pipeline with them
+# ---------------------------------------------------------------------------
+
+# the JAX package's accuracy gates (tests/test_whisper_pretrained.py:56-63,
+# tests/test_ctc_pretrained.py:35-41)
+ALIGN_GATE_MS = 80.0
+WHISPER_MIN_ACCURACY = 0.85
+# card vs CPU: equal words, every boundary within one encoder frame (20 ms).
+# The card's bfloat16 products add in another order than the CPU's; a score
+# that rounds the other way moves the attention by a few per cent, and a DP
+# choice between nearly equal paths by a frame
+TOL_ALIGN_S = 0.02
+KERNEL_CTC = dict(
+    name="ctc_viterbi",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/ctc_viterbi.cu",
+    replaces="prosody_control_french_tts_tpu/align/ctc.py:72",
+    also_replaces="prosody_control_french_tts_tpu/align/ctc.py:88",
+)
+ALIGN_SEGMENTS = 10
+# pauses between the sentences of a segment: past the aligners' VAD window
+# (400 ms), so that each sentence is a region of its own, and under the
+# silence split's (1 s), so that the segments stay whole
+ALIGN_PAUSES_S = (0.5, 0.9)
+SMALL_DECODE = dict(batch=16, max_new=128)
+# the pipeline's segment words against the gold spans: mean |boundary error|
+# under the aligners' gate, and word accuracy at least this. Whisper
+# transcribes: its own gate asks 0.85 of 8 sentences, where it reads 0.854
+# on the CPU in both packages; over this voice's ~550 words the CPU read
+# 0.852, and 0.80 leaves room for the card's roundings. CTC is forced with
+# the exact sentences: every word
+PIPE_MIN_ACCURACY = {"whisper": 0.80, "ctc": 0.99}
+
+
+def tg_words(tg):
+    return [(iv.min_time, iv.max_time, iv.mark) for iv in tg.tiers[0] if iv.mark.strip()]
+
+
+def same_words(want, got, label: str, tol: float = TOL_ALIGN_S) -> float:
+    """Equal marks, every boundary within ``tol`` → the largest difference."""
+    if [w for *_, w in got] != [w for *_, w in want]:
+        raise SystemExit(f"{label}: words differ: {[w for *_, w in want]} vs {[w for *_, w in got]}")
+    err = max((max(abs(a0 - b0), abs(a1 - b1)) for (a0, a1, _), (b0, b1, _) in zip(want, got)), default=0.0)
+    if err > tol + 1e-6:
+        raise SystemExit(f"{label}: boundaries differ by {err:.3f} s (limit {tol} s)")
+    return err
+
+
+def whisper_align_phase(card: str) -> dict:
+    """Phase 16: the packaged Whisper aligner on the card, the JAX bench's
+    whisper_align shape (12 held-out synthetic sentences, transcript-free,
+    one ``align_batch``), cold and warm, with the split of the warm call;
+    the JAX package's accuracy gate; card against CPU on three clips."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.align.pretrain_whisper import boundary_error_ms
+    from prosody_control_french_tts_tpu_torch.align.synth_speech import SynthSpec, sample_sentences, synth_sentence
+    from prosody_control_french_tts_tpu_torch.align.whisper import WhisperAligner
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio
+
+    al = WhisperAligner()
+    clips = [Audio(synth_sentence(s, seed=900_000 + i)[0], 16000) for i, s in enumerate(sample_sentences(12, seed=900_000))]
+    audio_s = sum(c.duration_seconds for c in clips)
+    times, splits = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tgs = al.align_batch(clips)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        splits.append(dict(al.last_split))
+    if not all(tg_words(tg) for tg in tgs):
+        raise SystemExit("whisper align: a clip without words")
+    trace = profile_measure(lambda: al.align_batch(clips))
+    err_ms, acc = boundary_error_ms(al, sample_sentences(8, seed=555_000), SynthSpec())
+    if not (err_ms < ALIGN_GATE_MS and acc > WHISPER_MIN_ACCURACY):
+        raise SystemExit(f"whisper align gate: boundary error {err_ms:.1f} ms, word accuracy {acc:.3f}")
+    cpu = WhisperAligner(device="cpu")
+    diff = max(same_words(tg_words(c), tg_words(g), f"whisper clip {i} card vs CPU")
+               for i, (g, c) in enumerate(zip(al.align_batch(clips[:3]), cpu.align_batch(clips[:3]))))
+    warm = splits[1]
+    print(f"whisper align (12 clips, {audio_s:.2f} s of audio, transcript-free): warm {times[1]:.4f} s, "
+          f"{audio_s / times[1]:.2f} audio-s/s; cold {times[0]:.3f} s; card={card}")
+    print("whisper align split warm (s; greedy steps): " + json.dumps({k: round(v, 5) for k, v in warm.items()})
+          + "; cold: " + json.dumps({k: round(v, 5) for k, v in splits[0].items()}))
+    print(f"whisper align gate (8 held-out sentences, seed 555000): boundary error {err_ms:.2f} ms (< {ALIGN_GATE_MS}), "
+          f"word accuracy {acc:.3f} (> {WHISPER_MIN_ACCURACY}); card vs CPU on 3 clips: equal words, "
+          f"max boundary difference {diff:.3f} s")
+    print("profile (warm whisper align_batch): " + json.dumps(trace))
+    return dict(audio_s=audio_s, warm_s=times[1], cold_s=times[0], split=warm, err_ms=err_ms, acc=acc,
+                busy=trace["device_busy_share"])
+
+
+def whisper_small_decode_phase(card: str, seed: int) -> dict:
+    """Phase 17: the decode pass at ``WhisperConfig.small()`` widths (dim
+    768, 12 + 12 layers, 1,500 encoder frames, vocab 51,865) with random
+    weights made on the card, batch 16, the full 128 steps (eot's embedding
+    row is zero, so its logit is 0 and never the largest); timing only."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.align.whisper import WhisperConfig, WhisperModel, _Marks, make_greedy_spans_fn
+
+    cfg = WhisperConfig.small()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = WhisperModel(cfg).to(dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+        eot, sot = cfg.vocab_size - 1, cfg.vocab_size - 2
+        model.decoder.tok_emb.embedding[eot] = 0.0
+    model.eval()
+    B, max_new = SMALL_DECODE["batch"], SMALL_DECODE["max_new"]
+    mel = torch.randn((B, 2 * cfg.n_audio_ctx, cfg.n_mels), generator=gen, device=dev)
+    fr = torch.full((B,), cfg.n_audio_ctx, dtype=torch.int32)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    fn = make_greedy_spans_fn(model, max_new)
+    out = {}
+    for label in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        marks = _Marks(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, n, spans = fn(mel, sot, eot, fr, active, marks=marks)
+        torch.cuda.synchronize()
+        out[label] = dict(seconds=time.perf_counter() - t0, steps=fn.steps, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          split_ms=marks.read())
+    w = out["warm"]
+    if w["steps"] != max_new or not bool((n == max_new).all()) or not torch.isfinite(spans).all():
+        raise SystemExit(f"whisper small decode: {w['steps']} steps, n {n.tolist()}")
+    step_ms = w["split_ms"]["greedy_s"] / (w["steps"] + 1)
+    print(f"whisper small decode (dim 768, 12 + 12 layers, 1,500 frames, vocab 51,865, batch {B}, {max_new} steps, random "
+          f"weights): warm {w['seconds']:.3f} s a call, {step_ms:.3f} ms a decode step (greedy loop by CUDA events over "
+          f"{w['steps']} + 1 steps), encoder + cross K/V {w['split_ms']['encode_s']:.2f} ms, DTW spans "
+          f"{w['split_ms']['dtw_s']:.2f} ms, peak device memory {w['peak_gb']:.2f} GB; cold {out['cold']['seconds']:.3f} s; "
+          f"card={card}")
+    return dict(seconds=w["seconds"], step_ms=step_ms, peak_gb=w["peak_gb"], split_ms=w["split_ms"])
+
+
+def ctc_align_phase(card: str) -> dict:
+    """Phase 18: the packaged CTC aligner on the card: the JAX package's
+    gate, card against CPU on three clips; the Viterbi's calls captured."""
+    from prosody_control_french_tts_tpu_torch.align.ctc_aligner import CTCAligner
+    from prosody_control_french_tts_tpu_torch.align.pretrain_ctc import boundary_error_ms
+    from prosody_control_french_tts_tpu_torch.align.synth_speech import SynthSpec, sample_sentences, synth_sentence
+    from prosody_control_french_tts_tpu_torch.ops import ctc_viterbi
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio
+
+    al = CTCAligner()
+    sents = sample_sentences(6, seed=555_000)
+    ctc_viterbi.launches = 0
+    with Capture(ctc_viterbi, "ctc_viterbi") as cap:
+        err_ms = boundary_error_ms(al, sents, SynthSpec())
+    if ctc_viterbi.launches != len(sents):
+        raise SystemExit(f"ctc align: {ctc_viterbi.launches} Viterbi launches for {len(sents)} sentences")
+    if not err_ms < ALIGN_GATE_MS:
+        raise SystemExit(f"ctc align gate: boundary error {err_ms:.1f} ms")
+    cpu = CTCAligner(device="cpu")
+    diff = 0.0
+    for i, s in enumerate(sample_sentences(3, seed=321_000)):
+        a = Audio(synth_sentence(s, seed=321_000 + i)[0], 16000)
+        diff = max(diff, same_words(tg_words(cpu.align(a, s)), tg_words(al.align(a, s)), f"ctc clip {i} card vs CPU"))
+    print(f"ctc align gate (6 held-out sentences, seed 555000): boundary error {err_ms:.2f} ms (< {ALIGN_GATE_MS}); "
+          f"card vs CPU on 3 clips: equal words, max boundary difference {diff:.3f} s; card={card}")
+    return dict(err_ms=err_ms, calls=list(cap.calls))
+
+
+def build_aligner_voice(base: Path, name: str, seed: int):
+    """A brute recording of synthetic French sentences (``align.synth_speech``,
+    16 kHz): ALIGN_SEGMENTS segments of 8–23 s, the sentences of a segment
+    ALIGN_PAUSES_S apart, the segments PIPE_GAP_S of zeros apart, resampled to
+    44.1 kHz into ``Data/voice/<name>/brute/segment.wav``. Returns (each
+    segment's sentences joined, the gold words [(t0, t1, word)] in seconds of
+    the recording, its audio seconds)."""
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.align.synth_speech import sample_sentences, synth_sentence
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio, resample, write_wav
+
+    sr = 16000
+    rng = np.random.default_rng(seed)
+    pool = iter(enumerate(sample_sentences(400, seed=seed)))
+    parts, texts, gold, t = [], [], [], 0.0
+    nxt = None
+    for k in range(ALIGN_SEGMENTS):
+        target, dur, seg = rng.uniform(8.0, 23.0), 0.0, []
+        while True:
+            if nxt is None:
+                i, sent = next(pool)
+                nxt = (sent, *synth_sentence(sent, seed=seed * 1000 + i))
+            sent, a, g = nxt
+            pause = rng.uniform(*ALIGN_PAUSES_S) if seg else 0.0
+            if seg and (dur >= target or dur + pause + a.size / sr > 23.0):
+                break
+            parts.append(np.zeros(int(round(pause * sr)), np.float32))
+            t += int(round(pause * sr)) / sr
+            gold += [(t + w0, t + w1, w) for w0, w1, w in g]
+            parts.append(np.asarray(a, np.float32))
+            t += a.size / sr
+            dur += pause + a.size / sr
+            seg.append(sent)
+            nxt = None
+        texts.append(" ".join(seg))
+        if k < ALIGN_SEGMENTS - 1:
+            parts.append(np.zeros(int(PIPE_GAP_S * sr), np.float32))
+            t += PIPE_GAP_S
+    x = np.concatenate(parts)
+    brute = base / "Data" / "voice" / name / "brute"
+    brute.mkdir(parents=True)
+    write_wav(brute / "segment.wav", np.asarray(resample(Audio(x, sr), 44100).samples, np.float32), 44100)
+    return texts, gold, x.size / sr
+
+
+def aligner_config(base: Path, name: str, aligner: str):
+    from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
+
+    return PipelineConfig.from_dict({
+        "data_dir": "Data/voice", "out_dir": "Out", "voice_names": [name], "azure_voice_name": "fr-FR-DeniseNeural",
+        "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300},
+        "tts_backend": "fake", "aligner": aligner,
+    }, base)
+
+
+def words_against_gold(pipe, gold) -> tuple[float, float]:
+    """The segment TextGrids' words, moved to the recording's time by their
+    silence-split offsets, against the gold words: (mean |boundary error| ms
+    over the matched words, word accuracy), words matched by sequence
+    alignment (difflib) as the Whisper gate matches them."""
+    from difflib import SequenceMatcher
+
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.prosody.measure import segment_sort_key
+    from prosody_control_french_tts_tpu_torch.utils.textgridio import read_textgrid
+
+    got = []
+    segs = sorted((pipe.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
+    for seg, (s_ms, _) in zip(segs, pipe.last_split):
+        got += [(t0 + s_ms / 1000.0, t1 + s_ms / 1000.0, w) for t0, t1, w in tg_words(read_textgrid(pipe.textgrid_dir / f"{seg.stem}.TextGrid"))]
+    sm = SequenceMatcher(a=[w.lower() for *_, w in gold], b=[w.lower() for *_, w in got], autojunk=False)
+    errs, hit = [], 0
+    for blk in sm.get_matching_blocks():
+        for k in range(blk.size):
+            hit += 1
+            errs += [abs(gold[blk.a + k][0] - got[blk.b + k][0]), abs(gold[blk.a + k][1] - got[blk.b + k][1])]
+    return (1000.0 * float(np.mean(errs)) if errs else float("inf")), hit / max(len(gold), 1)
+
+
+def aligner_pipeline_phase(tmp: Path, seed: int, card: str) -> dict:
+    """Phase 19: the eight steps with ``aligner: whisper`` (transcript-free,
+    as the JAX bench runs it), cold and warm, each on a fresh copy of the
+    voice; once more with ``aligner: ctc`` and the sentences as raw
+    transcripts. Kernel counts, artifacts, words against the gold spans."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.core import profiling
+    from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
+    from prosody_control_french_tts_tpu_torch.ops import ctc_viterbi
+    from prosody_control_french_tts_tpu_torch.prosody.measure import segment_sort_key
+
+    dev = torch.device("cuda")
+    out = {}
+    for label in ("cold", "warm", "ctc"):
+        aligner = "ctc" if label == "ctc" else "whisper"
+        base = tmp / f"aligners_{label}"
+        t0 = time.perf_counter()
+        texts, gold, audio_s = build_aligner_voice(base, "aligned", seed + 7)
+        made_s = time.perf_counter() - t0
+        pipe = AudioPipeline("aligned", aligner_config(base, "aligned", aligner), device=dev)
+        reset_kernel_counts()
+        ctc_viterbi.launches = 0
+        profiling.reset_phases()
+        with Capture(ctc_viterbi, "ctc_viterbi") as cap:
+            if aligner == "ctc":
+                pre, pre_s = run_steps(pipe, ["Preprocess"])
+                segs = sorted((pipe.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
+                if len(segs) != len(texts):
+                    raise SystemExit(f"aligner pipeline: the silence split gave {len(segs)} segments of {len(texts)}")
+                pipe.transcription_raw_dir.mkdir(parents=True, exist_ok=True)
+                for seg, text in zip(segs, texts):
+                    (pipe.transcription_raw_dir / f"{seg.stem}.txt").write_text(text, encoding="utf-8")
+                rest, rest_s = run_steps(pipe, pipe.STEP_NAMES[1:])
+                records, wall = pre + rest, pre_s + rest_s
+            else:
+                records, wall = run_steps(pipe, None)
+        counts = dict(kernel_counts(), ctc_viterbi=ctc_viterbi.launches)
+        if len(pipe.last_split) != ALIGN_SEGMENTS:
+            raise SystemExit(f"aligner pipeline {label}: {len(pipe.last_split)} segments of {ALIGN_SEGMENTS}")
+        want_ctc = ALIGN_SEGMENTS + 1 if aligner == "ctc" else 0
+        if counts["pitch_candidates"] != 1 or counts["viterbi"] != 1 or counts["ctc_viterbi"] != want_ctc:
+            raise SystemExit(f"aligner pipeline {label}: launches {counts} (A and B once, ctc_viterbi {want_ctc})")
+        check_pipeline_artifacts(pipe, ALIGN_SEGMENTS, aligner=aligner)
+        err_ms, acc = words_against_gold(pipe, gold)
+        if not (err_ms < ALIGN_GATE_MS and acc >= PIPE_MIN_ACCURACY[aligner]):
+            raise SystemExit(f"aligner pipeline {label}: words against gold: boundary error {err_ms:.1f} ms, accuracy {acc:.3f}")
+        rep = pipe.last_breaks
+        print(f"aligner pipeline {label} (aligner: {aligner}; {ALIGN_SEGMENTS} segments, {audio_s:.1f} s of audio, made in "
+              f"{made_s:.1f} s): eight steps {wall:.3f} s, {audio_s / wall:.2f} audio-s/s; launches {json.dumps(counts)}; "
+              f"words against gold: boundary error {err_ms:.2f} ms, accuracy {acc:.3f}; breaks {rep.within}/{rep.total} "
+              f"within 5 ms; card={card}")
+        print(f"aligner pipeline {label} steps (s): " + json.dumps(per_step(records)))
+        print(f"aligner pipeline {label} phases: " + json.dumps({k: round(v, 4) for k, v in sorted(profiling.PHASES.items())}))
+        out[label] = dict(wall=wall, audio_s=audio_s, counts=counts, calls=list(cap.calls), steps=per_step(records))
+    return out
+
+
+def ctc_kernel_row(calls, pipeline_launches: int, card: str, lib) -> dict:
+    """ctc_viterbi against its plain version on every captured call (states
+    and score bit for bit; the plain version on the CPU), then its time on the
+    largest call (the pipeline's Final Transcribe): the kernel alone as a
+    CUDA-graph replay beside the plain version on the card, the bytes bound
+    (the emissions of the frames it advances read once, the pointers written
+    and read once, the states written) and the forward chain's floor (a
+    shuffle and three dependent add/max a frame, latencies measured on this
+    card by ``viterbi_latency_probe``)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import ctc_viterbi, kernels
+
+    checked = 0
+    for (emit, skip, inp, lab), _ in calls:
+        got_states, got_score = ctc_viterbi.ctc_viterbi(emit, skip, inp, lab)
+        for b in range(emit.shape[0]):
+            ws, wsc = ctc_viterbi.ctc_viterbi_plain(emit[b].cpu(), skip[b].cpu(), int(inp[b]), int(lab[b]))
+            if not torch.equal(got_states[b].cpu(), ws) or got_score[b].cpu().view(torch.int32) != wsc.view(torch.int32):
+                raise SystemExit(f"ctc_viterbi differs from its plain version at [T, S] {tuple(emit.shape[1:])}")
+            checked += 1
+    (emit, skip, inp, lab), _ = max(calls, key=lambda c: c[0][0].numel())
+    _, T, S = emit.shape
+    Tv = min(max(int(inp[0]), 1), T)
+    inp_d, lab_d = inp.to(emit.device, torch.int32), lab.to(emit.device, torch.int32)
+    sk = skip.to(torch.uint8)
+    back = torch.empty((1, max(T - 1, 1), S), dtype=torch.int8, device=emit.device)
+    states = torch.empty((1, T), dtype=torch.int32, device=emit.device)
+    score = torch.empty((1,), dtype=torch.float32, device=emit.device)
+
+    def launch():
+        kernels.check(lib.ctc_viterbi_launch(emit.data_ptr(), sk.data_ptr(), inp_d.data_ptr(), lab_d.data_ptr(),
+                                             back.data_ptr(), states.data_ptr(), score.data_ptr(), 1, T, S,
+                                             kernels.stream_ptr(emit)), "ctc_viterbi")
+
+    ms = graph_ms(launch, reps=10)
+    plain_ms = cuda_ms(lambda: ctc_viterbi.ctc_viterbi_plain(emit[0], skip[0], int(inp[0]), int(lab[0])), reps=1, warmup=0)
+    nbytes = Tv * S * 4 + 2 * (Tv - 1) * S + T * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    floor = viterbi_chain_floor(lib, Tv, 2)
+    chain_ms = (Tv - 1) * (floor["shfl_ns"] + 3 * floor["alu_ns"]) / 1e6
+    row = dict(KERNEL_CTC, launches=pipeline_launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by="bytes", library_ms=None, check="pass", calls_checked=checked, shape_T_S_Tv=[T, S, Tv],
+               chain_floor_ms=chain_ms)
+    print(f"kernel ctc_viterbi: ms={ms:.4f} (CUDA-graph replay at [T, S] [{T}, {S}], {Tv} frames advanced: the pipeline's "
+          f"Final Transcribe) launches={pipeline_launches} bound_ms={bound:.5f} (bytes {nbytes}) chain_floor_ms={chain_ms:.4f} "
+          f"(({Tv} - 1) x (shfl {floor['shfl_ns']:.2f} ns + 3 x add/max {floor['alu_ns']:.2f} ns)) plain_ms={plain_ms:.1f} "
+          f"max_abs_err=0 (states and score bit-equal on {checked} captured calls) card={card}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2591,6 +2990,14 @@ def main() -> int:
     rows_out.append(mv["mask_ema"])
     rows_out.append(llm_phases(args, card))
     rows_out.extend(train_phases(args, card))
+
+    # -- 16-19. the acoustic aligners and the pipeline with them -------------
+    whisper_align_phase(card)
+    whisper_small_decode_phase(card, args.seed)
+    ctc = ctc_align_phase(card)
+    with tempfile.TemporaryDirectory() as tmp2:
+        ap = aligner_pipeline_phase(Path(tmp2), args.seed, card)
+    rows_out.append(ctc_kernel_row(ctc["calls"] + ap["ctc"]["calls"], ap["ctc"]["counts"]["ctc_viterbi"], card, lib))
 
     print(f"measure step (warm): wall {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s; card={card}")
     print("phases warm: " + json.dumps({k2: round(v, 4) for k2, v in sorted(warm_phases.items())}))

@@ -1,2 +1,2 @@
 """Alignment: the ``Aligner`` protocol with the hermetic energy and
-precomputed aligners."""
+precomputed aligners and the acoustic CTC and Whisper aligners."""

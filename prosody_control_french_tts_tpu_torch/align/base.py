@@ -2,8 +2,9 @@
 
 Every aligner returns a word tier with explicit silence intervals
 (``utils.textgridio.word_tier_with_silences``), the artifact the rest of the
-pipeline reads. The port serves the hermetic ``energy`` and ``precomputed``
-aligners.
+pipeline reads. The registry serves ``precomputed``, ``energy``, ``ctc``
+and ``whisper`` (``whisper_jax`` is the JAX package's name for it, kept so
+its configs run unchanged).
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ def words_to_textgrid(words: list[AlignedWord], duration: float) -> TextGrid:
 
 
 def get_aligner(name: str, **kwargs) -> "Aligner":
-    """Aligner registry: ``precomputed`` and ``energy``. The acoustic
-    aligners (CTC, Whisper) are not ported yet."""
+    """Aligner registry (the config switch of the reference's
+    ``_alignement`` dispatcher). ``device`` passes through to the aligners
+    that compute (``energy``, ``ctc``, ``whisper``): CUDA by default, and
+    without a card they raise unless given ``device="cpu"``."""
     if name == "precomputed":
         from .precomputed import PrecomputedAligner
 
@@ -46,9 +49,12 @@ def get_aligner(name: str, **kwargs) -> "Aligner":
         from .energy import EnergyAligner
 
         return EnergyAligner(**kwargs)
-    if name in ("ctc", "whisper_jax", "whisper"):
-        raise NotImplementedError(
-            f"aligner {name!r} is not ported to PyTorch yet (ROADMAP Queue 1 items 9-10: CTC, Whisper); "
-            "use 'energy' or 'precomputed'"
-        )
+    if name == "ctc":
+        from .ctc_aligner import CTCAligner
+
+        return CTCAligner(**kwargs)
+    if name in ("whisper_jax", "whisper"):
+        from .whisper import WhisperAligner
+
+        return WhisperAligner(**kwargs)
     raise ValueError(f"unknown aligner {name!r}")

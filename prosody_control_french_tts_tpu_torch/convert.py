@@ -13,8 +13,16 @@ The LLM's weights cross as trees of numpy arrays keyed as the flax tree is
 is copied and none is transposed; a leaf the port does not know raises.
 
 The packaged checkpoints cross as ``.npz`` → ``state_dict`` converters:
-``masknet_params_from_jax`` for the separator; later slices add the break
-tagger's and the aligners'.
+``masknet_params_from_jax`` for the separator, ``ctc_params_from_jax`` and
+``whisper_params_from_jax`` for the acoustic aligners; a later slice adds
+the break tagger's. The aligners' flax layouts become the port's: a Conv
+kernel ``[k, in, out]`` → ``[out, in, k]``, a DenseGeneral kernel
+``[dim, heads, hd]`` → ``[dim, heads·hd]`` and ``[heads, hd, dim]`` →
+``[heads·hd, dim]`` (its bias flattened likewise), Dense kernels stay
+``[in, out]``, LayerNorm ``scale``/``bias`` and Embed ``embedding`` as they
+are. The converters give float32 tensors; loading them into a module casts
+each to the module's parameter type (bfloat16 where the flax layer computes
+in bfloat16).
 """
 
 from __future__ import annotations
@@ -190,4 +198,120 @@ def masknet_params_from_jax(tree: dict) -> dict:
         want |= {f"convs.{i}.weight", f"convs.{i}.bias", f"norms.{i}.weight", f"norms.{i}.bias"}
     if set(out) != want:
         raise ValueError(f"masknet_params_from_jax: missing {sorted(want - set(out))}, extra {sorted(set(out) - want)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the acoustic aligners (CTC encoder, Whisper encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def _aligner_leaf(key: str, kind: str, leaf: str, val) -> torch.Tensor:
+    """One flax leaf → the port's layout (see the module docstring)."""
+    v = np.array(val, np.float32)
+    if kind == "conv" and leaf == "kernel":
+        v = v.transpose(2, 1, 0)
+    elif kind == "dense_in" and v.ndim == 3:  # [dim, heads, hd]
+        v = v.reshape(v.shape[0], -1)
+    elif kind == "dense_in" and v.ndim == 2 and leaf == "bias":  # [heads, hd]
+        v = v.reshape(-1)
+    elif kind == "dense_out" and leaf == "kernel":  # [heads, hd, dim]
+        v = v.reshape(-1, v.shape[-1])
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def _put(out: dict, name: str, key: str, v: torch.Tensor, who: str) -> None:
+    if name in out:
+        raise ValueError(f"{who}: {key!r} maps onto {name!r} twice")
+    out[name] = v
+
+
+_CTC_LEAF = re.compile(
+    r"(Conv|LayerNorm|Dense|MultiHeadDotProductAttention)_(\d+)/(?:(query|key|value|out)/)?(kernel|bias|scale)$"
+)
+
+
+def ctc_params_from_jax(tree: dict) -> dict:
+    """Flax ``CTCEncoder`` tree of numpy arrays (``ctc_fr_synth.npz`` as read
+    by ``align.ctc_aligner.load_params``, with or without the outer
+    ``params``) → the ``state_dict`` of this port's ``CTCEncoder``.
+    ``Conv_0``/``Conv_1`` are the two convolutions, ``Embed_0`` the
+    positions, ``MultiHeadDotProductAttention_i`` layer i's attention,
+    ``LayerNorm_2i``/``_2i+1`` and ``Dense_2i``/``_2i+1`` its norms and
+    feed-forward, the last LayerNorm and Dense the output. An unknown or
+    repeated leaf raises; a missing one fails ``load_state_dict``."""
+    who = "ctc_params_from_jax"
+    flat = _flatten(tree["params"] if "params" in tree else tree)
+    n_layers = len({m.group(2) for m in map(_CTC_LEAF.match, flat) if m and m.group(1) == "MultiHeadDotProductAttention"})
+    out = {}
+    for key, val in flat.items():
+        if key == "Embed_0/embedding":
+            _put(out, "pos_emb", key, torch.from_numpy(np.asarray(val, np.float32)), who)
+            continue
+        m = _CTC_LEAF.match(key)
+        if m is None:
+            raise ValueError(f"{who}: unknown leaf {key!r}")
+        kind, i, proj, leaf = m.group(1), int(m.group(2)), m.group(3), m.group(4)
+        if kind == "Conv" and i < 2 and leaf != "scale" and proj is None:
+            name, conv = f"conv{i}.{'weight' if leaf == 'kernel' else 'bias'}", "conv"
+        elif kind == "MultiHeadDotProductAttention" and proj is not None and leaf != "scale" and i < n_layers:
+            name, conv = f"layers.{i}.attn.{proj}.{leaf}", ("dense_out" if proj == "out" else "dense_in")
+        elif kind == "LayerNorm" and leaf in ("scale", "bias") and proj is None and i <= 2 * n_layers:
+            prefix = "ln_f" if i == 2 * n_layers else f"layers.{i // 2}.ln{1 + i % 2}"
+            name, conv = f"{prefix}.{leaf}", "norm"
+        elif kind == "Dense" and leaf in ("kernel", "bias") and proj is None and i <= 2 * n_layers:
+            prefix = "head" if i == 2 * n_layers else f"layers.{i // 2}.fc{1 + i % 2}"
+            name, conv = f"{prefix}.{leaf}", "dense"
+        else:
+            raise ValueError(f"{who}: unknown leaf {key!r}")
+        _put(out, name, key, _aligner_leaf(key, conv, leaf, val), who)
+    return out
+
+
+_WHISPER_LEAF = re.compile(
+    r"(encoder|decoder)/(?:block_(\d+)/)?"
+    r"(conv1|conv2|ln_post|ln_attn|ln_cross|ln_ffn|fc1|fc2|attn|cross|tok_emb)/"
+    r"(?:(q|k|v|out)/)?(kernel|bias|scale|embedding)$"
+)
+
+
+def whisper_params_from_jax(tree: dict) -> dict:
+    """Flax ``WhisperModel`` tree of numpy arrays (``weights.npz`` of a
+    checkpoint directory, with or without the outer ``params``) → the
+    ``state_dict`` of this port's ``align.whisper.WhisperModel``:
+    ``{encoder,decoder}/block_i/...`` → ``{encoder,decoder}.blocks.i....``,
+    the rest by the same names. An unknown or repeated leaf raises; a
+    missing one fails ``load_state_dict``."""
+    who = "whisper_params_from_jax"
+    flat = _flatten(tree["params"] if "params" in tree else tree)
+    out = {}
+    for key, val in flat.items():
+        if key == "decoder/pos_emb":
+            _put(out, "decoder.pos_emb", key, torch.from_numpy(np.asarray(val, np.float32)), who)
+            continue
+        m = _WHISPER_LEAF.match(key)
+        if m is None:
+            raise ValueError(f"{who}: unknown leaf {key!r}")
+        part, blk, layer, proj, leaf = m.groups()
+        in_block = layer in ("ln_attn", "ln_cross", "ln_ffn", "fc1", "fc2", "attn", "cross")
+        if (blk is not None) != in_block or (proj is not None) != (layer in ("attn", "cross")):
+            raise ValueError(f"{who}: unknown leaf {key!r}")
+        if layer in ("conv1", "conv2"):
+            if part != "encoder" or leaf not in ("kernel", "bias"):
+                raise ValueError(f"{who}: unknown leaf {key!r}")
+            conv, leaf_name = "conv", ("weight" if leaf == "kernel" else "bias")
+        elif layer == "tok_emb":
+            if part != "decoder" or leaf != "embedding":
+                raise ValueError(f"{who}: unknown leaf {key!r}")
+            conv, leaf_name = "embed", leaf
+        elif layer.startswith("ln_"):
+            if leaf not in ("scale", "bias"):
+                raise ValueError(f"{who}: unknown leaf {key!r}")
+            conv, leaf_name = "norm", leaf
+        else:
+            if leaf not in ("kernel", "bias"):
+                raise ValueError(f"{who}: unknown leaf {key!r}")
+            conv, leaf_name = ("dense_out" if proj == "out" else "dense_in" if proj else "dense"), leaf
+        path = [part] + ([f"blocks.{blk}"] if blk is not None else []) + [layer] + ([proj] if proj else []) + [leaf_name]
+        _put(out, ".".join(path), key, _aligner_leaf(key, conv, leaf, val), who)
     return out

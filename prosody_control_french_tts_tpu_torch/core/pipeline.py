@@ -14,20 +14,21 @@ conventions and artifacts are the same, so voice layouts and
 
 The steps: 1 Preprocess (the spectral gate or the MaskNet separator on the
 device, or a ``denoise_command`` on the host, or identity; then the silence
-split, ``ops.energy``, on the device); 2 Align+Transcribe (the
-``energy`` aligner on the device, or ``precomputed`` TextGrids); 3 Raw
-Synthesis; 4 Measure & Build SSML (``prosody.measure`` on the device,
-kernels A and B, then the three BDD CSVs); 5 Synthesize+Merge; 6 Export
-JSON; 7 Final Transcribe (the energy aligner over OUT.wav); 8 Compare
-Breaks. ``AudioPipeline(name, cfg, device="cuda").run()`` is the entry
-point; the device reaches the denoisers, the silence scan, both
-energy-aligner calls and the measure step. ``main()`` runs every voice of a
+split, ``ops.energy``, on the device); 2 Align+Transcribe (the ``whisper``
+or ``ctc`` acoustic aligner, or the ``energy`` aligner, on the device, or
+``precomputed`` TextGrids); 3 Raw Synthesis; 4 Measure & Build SSML
+(``prosody.measure`` on the device, kernels A and B, then the three BDD
+CSVs); 5 Synthesize+Merge; 6 Export JSON; 7 Final Transcribe (the
+configured acoustic aligner over OUT.wav, or the energy aligner); 8
+Compare Breaks. ``AudioPipeline(name, cfg, device="cuda").run()`` is the
+entry point; the device reaches the denoisers, the silence scan, every
+aligner call and the measure step. ``main()`` runs every voice of a
 config, with ``multiprocessing: true`` through ``core.batch_runner`` (one
 batched measure pass for all voices).
 
-Not ported: the acoustic aligners (CTC, Whisper), the Azure backend (a
-backend object may be passed in), the contextual POS tagger, and the
-JAX package's corpus prefetch hooks, which move no result.
+Not ported: the Azure backend (a backend object may be passed in), the
+contextual POS tagger, and the JAX package's corpus prefetch hooks, which
+move no result.
 ``measure_and_build_ssml`` runs step 4 alone.
 """
 
@@ -269,10 +270,16 @@ class AudioPipeline:
         log.info("silence split: %d segments", len(ranges))
 
     # 2 ------------------------------------------------------------------
+    def _aligner(self):
+        """The configured aligner (``aligner_options`` passed on) on the
+        pipeline's device."""
+        return get_aligner(self.cfg.aligner, **{**self.cfg.raw.get("aligner_options", {}), "device": self.device})
+
     def align_and_transcribe(self):
         """Aligner → TextGrids + transcripts. With aligner=precomputed the
-        existing TextGrids are used as they are; the energy aligner
-        regenerates them from the raw transcripts. Raw transcripts keep
+        existing TextGrids are used as they are; the other aligners
+        regenerate them (the energy and CTC aligners from the raw
+        transcripts, Whisper with or without them). Raw transcripts keep
         punctuation; the cleaned ones get the spurious-comma filter."""
         log.info(">>> Align & Transcribe (%s)", self.cfg.aligner)
         tg_dir = self.textgrid_dir
@@ -288,13 +295,29 @@ class AudioPipeline:
         if not precomputed:
             shutil.rmtree(tg_dir, ignore_errors=True)
         tg_dir.mkdir(parents=True, exist_ok=True)
-        if precomputed:
-            aligner = get_aligner("precomputed", textgrid_dir=tg_dir)
-        else:
-            opts = dict(self.cfg.raw.get("aligner_options", {}))
-            if self.cfg.aligner == "energy":
-                opts["device"] = self.device
-            aligner = get_aligner(self.cfg.aligner, **opts)
+        aligner = get_aligner("precomputed", textgrid_dir=tg_dir) if precomputed else self._aligner()
+
+        # a corpus-batched aligner (WhisperAligner.align_batch) takes the
+        # segments in groups of up to ~6 min of 44.1 kHz audio (16 M
+        # samples), a few device passes a group instead of a set per segment
+        batch_tgs: dict[str, object] = {}
+        if not precomputed and hasattr(aligner, "align_batch"):
+            cap = 16_000_000  # samples per group
+            group: list[tuple[str, Audio, str | None]] = []
+
+            def flush():
+                if group:
+                    tgs = aligner.align_batch([g[1] for g in group], [g[2] for g in group])
+                    batch_tgs.update(zip((g[0] for g in group), tgs))
+                    group.clear()
+
+            for wav_path in seg_files:
+                t_raw = txt_raw_dir / f"{wav_path.stem}.txt"
+                tr = t_raw.read_text(encoding="utf-8").strip() if t_raw.exists() else None
+                group.append((wav_path.stem, read_wav(wav_path).to_mono(), tr))
+                if sum(g[1].samples.size for g in group) >= cap:
+                    flush()
+            flush()
 
         for wav_path in seg_files:
             stem = wav_path.stem
@@ -303,6 +326,9 @@ class AudioPipeline:
                 if not tg_path.exists():
                     raise FileNotFoundError(f"aligner=precomputed but {tg_path} missing; run a real aligner")
                 tg = aligner.for_segment(stem).align(None)
+            elif stem in batch_tgs:
+                tg = batch_tgs[stem]
+                write_textgrid(tg, tg_path)
             else:
                 audio = read_wav(wav_path).to_mono()
                 t_raw = txt_raw_dir / f"{stem}.txt"
@@ -412,8 +438,10 @@ class AudioPipeline:
 
     # 7 ------------------------------------------------------------------
     def final_transcribe(self):
-        """Re-align the merged OUT.wav → OUT.TextGrid with the energy aligner
-        against the known syntagme text."""
+        """Re-align the merged OUT.wav → OUT.TextGrid against the known
+        syntagme text, with the configured acoustic aligner (the energy
+        aligner when the pipeline's aligner is ``energy`` or
+        ``precomputed``)."""
         log.info(">>> Final transcribe")
         out_wav = self.results_dir / "OUT.wav"
         if not out_wav.exists():
@@ -428,7 +456,7 @@ class AudioPipeline:
         if self.cfg.aligner in ("precomputed", "energy"):
             tg = EnergyAligner(device=self.device).align(audio, text)
         else:
-            tg = get_aligner(self.cfg.aligner, **self.cfg.raw.get("aligner_options", {})).align(audio, text)
+            tg = self._aligner().align(audio, text)
         write_textgrid(tg, self.results_dir / "OUT.TextGrid")
         (self.results_dir / "transcription_final.txt").write_text(text, encoding="utf-8")
 

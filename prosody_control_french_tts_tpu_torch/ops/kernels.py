@@ -12,7 +12,7 @@ parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
 ``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn``, ``ops.fused_ce``,
-``ops.frames``, ``ops.chunk_cumsum``, ``ops.flash_attention`` and ``ops.mask_ema`` take their
+``ops.frames``, ``ops.chunk_cumsum``, ``ops.flash_attention``, ``ops.mask_ema`` and ``ops.ctc_viterbi`` take their
 plain PyTorch versions only for tensors on the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 SOURCES = (
     "pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu",
-    "frames.cu", "chunk_cumsum.cu", "flash_attention.cu", "mask_ema.cu",
+    "frames.cu", "chunk_cumsum.cu", "flash_attention.cu", "mask_ema.cu", "ctc_viterbi.cu",
 )
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
@@ -87,6 +87,10 @@ _SIGNATURES = {
     "chunk_cumsum_launch": (_VP, _VP, _I, _I, _VP),
     # mask, out, F, T, smooth, 1 - smooth, stream
     "mask_ema_launch": (_VP, _VP, _I, ctypes.c_longlong, _F, _F, _VP),
+    # emit, skip, input_len, label_len, back, states, score, B, T, S, stream
+    "ctc_viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP),
+    # S -> states a thread holds (0: more than one block takes)
+    "ctc_viterbi_states_per_thread": (_I,),
     # q, k, v, o, l, m, plan, n_plan, B, H, KVH, L, hd, strides (12 int64, host), scale, dtype, stream
     "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
     # q, k, v, o, do, l, m, di, lse2, dk_part, dv_part, dq, dk, dv, plan_q, plan_k, n_plan, B, H, KVH, L, hd,

@@ -28,7 +28,8 @@ def test_importing_every_module_loads_no_jax():
     for name in ("ops.vmem_attn", "ops.fused_ce", "models.training", "ops.frames", "ops.chunk_cumsum", "ops.energy",
                  "core.pipeline", "core.config", "align.energy", "tts.fake", "ssml.parse", "eval.breaks",
                  "ops.stft", "ops.mask_ema", "audio.denoise", "audio.separate", "audio.merge", "core.batch_runner",
-                 "core.synchronized", "tts.batch"):
+                 "core.synchronized", "tts.batch", "align.whisper", "align.ctc", "align.ctc_aligner", "ops.dtw",
+                 "ops.ctc_viterbi", "align.lexicon_decode", "align.synth_speech", "models.bpe_tokenizer"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -193,3 +194,29 @@ def test_wrappers_refuse_other_devices():
         split_on_silence_ranges(np.zeros(44100, np.float32), 44100, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         AudioPipeline("v", PipelineConfig.from_dict({"tts_backend": "fake"}, "."), device="meta")
+
+
+def test_acoustic_aligners_default_to_cuda():
+    """The acoustic aligners, built by name or directly, default to CUDA and
+    raise without a card; asked for the CPU, they run there, and the CTC
+    Viterbi wrapper takes its plain version for CPU tensors only."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    from prosody_control_french_tts_tpu_torch.align.base import get_aligner
+    from prosody_control_french_tts_tpu_torch.align.ctc_aligner import CTCAligner
+    from prosody_control_french_tts_tpu_torch.align.whisper import WhisperAligner
+    from prosody_control_french_tts_tpu_torch.ops import ctc_viterbi
+
+    for name in ("whisper", "whisper_jax", "ctc"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_aligner(name)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WhisperAligner()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CTCAligner()
+    assert get_aligner("ctc", device="cpu").device.type == "cpu"
+    assert get_aligner("whisper", device="cpu").device.type == "cpu"
+    states, _ = ctc_viterbi.ctc_forced_align(torch.zeros((3, 4)), torch.tensor([1]), 3, 1)
+    assert states.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc_viterbi.ctc_forced_align(torch.zeros((3, 4), device="meta"), torch.tensor([1]), 3, 1)

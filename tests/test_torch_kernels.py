@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from prosody_control_french_tts_tpu_torch.ops import (
-    candidates, chunk_cumsum, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
+    candidates, chunk_cumsum, ctc_viterbi, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
 )
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
@@ -963,3 +963,120 @@ def test_mask_ema_kernel_is_deterministic_and_checks(cuda):
         mask_ema.mask_ema(m.t())
     with pytest.raises(ValueError):
         mask_ema.mask_ema(m[None])
+
+
+# ---------------------------------------------------------------------------
+# ctc_viterbi (the CTC aligner's forced-alignment Viterbi; no TPU kernel)
+# ---------------------------------------------------------------------------
+
+
+def ctc_fixture(T, L, seed, V=47, ties=False, equal_columns=False):
+    """Frame log-softmax [T, V] and labels [L]: every fifth label repeats
+    the one before it (the skip is forbidden there); ``ties`` quantises the
+    logits so that candidates meet exactly, ``equal_columns`` makes every
+    column of a frame equal."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(scale=3.0, size=(T, V)).astype(np.float32)
+    if ties:
+        logits = np.round(logits)
+    if equal_columns:
+        logits[:] = logits[:, :1]
+    lp = torch.log_softmax(torch.from_numpy(logits), dim=-1)
+    labels = rng.integers(1, 8 if ties else V, size=L)
+    labels[4::5] = labels[3::5][: len(labels[4::5])]
+    return lp, torch.from_numpy(labels.astype(np.int32))
+
+
+def ctc_kernel_vs_plain(cuda, lp, labels, input_len, label_len):
+    """The kernel on the card against the plain version on the CPU: states
+    and score bit for bit."""
+    want_states, want_score = ctc_viterbi.ctc_forced_align_plain(lp, labels, input_len, label_len)
+    n = ctc_viterbi.launches
+    got_states, got_score = ctc_viterbi.ctc_forced_align(lp.to(cuda), labels.to(cuda), input_len, label_len)
+    torch.cuda.synchronize()
+    assert ctc_viterbi.launches == n + 1
+    assert torch.equal(got_states.cpu(), want_states)
+    assert got_score.cpu().view(torch.int32).item() == want_score.view(torch.int32).item()
+
+
+def test_ctc_plain_tie_order():
+    """Equal candidates: stay beats s - 1, which beats s - 2; a repeated
+    label forbids the skip over the blank between its copies."""
+    lp = torch.zeros((3, 4))  # every emission 0: every candidate ties
+    # frame 1: state 1 stays (not 0 -> 1), state 3 skips from 1; frame 2:
+    # state 4 comes from 3, and the last blank wins the tie at the end
+    states, score = ctc_viterbi.ctc_forced_align_plain(lp, torch.tensor([1, 2]), 3, 2)
+    assert states.tolist() == [1, 3, 4] and score.item() == 0.0
+    states, _ = ctc_viterbi.ctc_forced_align_plain(lp, torch.tensor([1, 1]), 3, 2)
+    assert states.tolist() == [1, 2, 3]  # the repeat must pass through the blank
+    # label_len 2 of 4 (padding) and input_len 2 of 3: the last frame keeps the final state
+    states, _ = ctc_viterbi.ctc_forced_align_plain(lp, torch.tensor([1, 2, 0, 0]), 2, 2)
+    assert states.tolist() == [1, 3, 3]
+
+
+# (L, T): S = 2L + 1 from 1 to 2,049 and T from 1 to 8,192 (states a thread
+# 2, 4; one and several warps), 4,401 states at 7,300 frames (Final
+# Transcribe of a 146 s OUT.wav: 8 states a thread) and 16,383 (16 a thread)
+CTC_SHAPES = [(0, 1), (0, 9), (1, 1), (1, 2), (2, 5), (15, 64), (31, 33), (32, 100), (63, 257), (64, 1000),
+              (300, 700), (511, 2000), (1024, 8192), (2200, 7300), (8191, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CTC_SHAPES)
+@pytest.mark.parametrize("ties", [False, True])
+def test_ctc_viterbi_kernel_equals_plain(cuda, shape, ties):
+    L, T = shape
+    lp, labels = ctc_fixture(T, L, seed=L * 31 + T, ties=ties)
+    ctc_kernel_vs_plain(cuda, lp, labels, T, L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(31, 200), (64, 1000), (1000, 4000)])
+def test_ctc_viterbi_kernel_frozen_frames_padded_labels_equal_columns(cuda, shape):
+    """Frames past input_len (alpha frozen, the final state kept), labels
+    padded to a multiple of 32 past label_len, and frames whose columns are
+    all equal (every candidate ties every frame)."""
+    L, T = shape
+    Lp = (L + 31) // 32 * 32 + 32
+    lp, labels = ctc_fixture(T, Lp, seed=L + T, ties=True)
+    for input_len, label_len in ((T, L), (T // 2, L // 2), (T - 1, Lp), (1, L), (T + 5, 0)):
+        ctc_kernel_vs_plain(cuda, lp, labels, input_len, min(label_len, Lp))
+    lp_eq, labels = ctc_fixture(T, L, seed=L + T + 1, equal_columns=True)
+    ctc_kernel_vs_plain(cuda, lp_eq, labels, T, L)
+
+
+@pytest.mark.gpu
+def test_ctc_viterbi_kernel_batch_and_checks(cuda):
+    """Several sequences in one launch (one block each), each equal to its
+    own plain alignment; the wrapper counts launches and refuses what the
+    kernel cannot take."""
+    B, T, L = 5, 300, 40
+    lp, labels = ctc_fixture(T, L, seed=7, ties=True)
+    ext = ctc_viterbi.expand_labels(labels.long(), 0)
+    emit = lp[:, ext]
+    S = ext.shape[0]
+    s_idx = torch.arange(S)
+    skip = (s_idx >= 2) & (s_idx % 2 == 1) & (ext != torch.roll(ext, 2))
+    in_lens = torch.tensor([300, 1, 150, 299, 77], dtype=torch.int32)
+    lab_lens = torch.tensor([40, 0, 20, 39, 40], dtype=torch.int32)
+    n = ctc_viterbi.launches
+    states, score = ctc_viterbi.ctc_viterbi(emit[None].repeat(B, 1, 1).to(cuda), skip[None].repeat(B, 1).to(cuda), in_lens,
+                                            lab_lens)
+    assert ctc_viterbi.launches == n + 1
+    for b in range(B):
+        ws, wsc = ctc_viterbi.ctc_viterbi_plain(emit, skip, int(in_lens[b]), int(lab_lens[b]))
+        assert torch.equal(states[b].cpu(), ws)
+        assert score[b].cpu().view(torch.int32).item() == wsc.view(torch.int32).item()
+    a, _ = ctc_viterbi.ctc_viterbi(emit[None].to(cuda), skip[None].to(cuda), in_lens[:1], lab_lens[:1])
+    b2, _ = ctc_viterbi.ctc_viterbi(emit[None].to(cuda), skip[None].to(cuda), in_lens[:1], lab_lens[:1])
+    assert torch.equal(a, b2)
+    big = ctc_viterbi.MAX_STATES + 2
+    with pytest.raises(ValueError, match="exceed"):
+        ctc_viterbi.ctc_viterbi(torch.zeros((1, 4, big), device=cuda), torch.zeros((1, big), dtype=torch.bool, device=cuda),
+                                torch.tensor([4]), torch.tensor([1]))
+    with pytest.raises(ValueError, match="label_len"):
+        ctc_viterbi.ctc_viterbi(emit[None].to(cuda), skip[None].to(cuda), in_lens[:1], torch.tensor([L + 1]))
+    with pytest.raises(TypeError):
+        ctc_viterbi.ctc_viterbi(emit[None].double().to(cuda), skip[None].to(cuda), in_lens[:1], lab_lens[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        ctc_viterbi.ctc_viterbi(emit[None], skip[None], in_lens[:1], lab_lens[:1])

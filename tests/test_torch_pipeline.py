@@ -393,13 +393,25 @@ def test_unwritable_config_refused_before_any_step(tmp_path, value):
 
 @pytest.mark.parametrize("aligner", ["ctc", "whisper", "whisper_jax"])
 def test_acoustic_aligners_refused(tmp_path, aligner):
-    from prosody_control_french_tts_tpu_torch.align.base import get_aligner
+    """The acoustic aligners are ported: without a card they are refused
+    unless the CPU is asked for, and the pipeline hands them its device, so
+    a CPU pipeline aligns every segment with them."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="items 9-10"):
-        get_aligner(aligner)
+    from prosody_control_french_tts_tpu_torch.align.base import get_aligner
+    from prosody_control_french_tts_tpu_torch.utils.textgridio import read_textgrid as tread_textgrid
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_aligner(aligner)
     base = tmp_path / aligner
     shutil.rmtree(base, ignore_errors=True)
     build_voice(base)
     pipe = TPipeline(NAME, TConfig.from_dict(dict(CONFIG, aligner=aligner), base), device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.align_and_transcribe()
+    pipe.align_and_transcribe()
+    for seg, words in SEGMENTS.items():
+        tg = tread_textgrid(pipe.textgrid_dir / f"{seg}.TextGrid")
+        marks = [iv.mark for iv in tg.tiers[0] if iv.mark.strip()]
+        assert marks
+        if aligner == "ctc":  # forced with the raw transcript: its words
+            assert marks == [w for w, _ in words]
