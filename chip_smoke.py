@@ -118,7 +118,8 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     every artifact of the end-to-end test for every voice, and each voice's
     batched rows against a per-voice ``measure_voice`` on the card (1e-3,
     equal syntagmes); holds ``mask_ema`` bit-equal to its plain version on
-    the mask of the 159.5 s recording and times it; holds ``denoise`` and
+    the mask of the 159.5 s recording, reads its fix-up count there and
+    times it beside its byte bound and one chain a bin's floor; holds ``denoise`` and
     ``MaskSeparator.separate`` on the card against the CPU on a 20 s excerpt
     (1e-5 of the peak; 30 dB SI-SNR); runs a 2-voice set in two groups with
     ``denoise: spectral`` on the card (``mask_ema`` once per voice) and on
@@ -153,7 +154,8 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     segments' words against the gold spans; then ``ctc_viterbi`` held bit for
     bit to its plain version on every call captured in phases 18 and 19, and
     timed on the Final Transcribe call beside its plain version, its bytes
-    bound and its chain's floor.
+    bound and its chain's floor, with ``ctc_forced_align`` timed as a whole
+    call beside the kernel alone.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fourteen entries (mask_ema and ctc_viterbi,
@@ -470,21 +472,31 @@ def print_ptxas_report(procs, lib) -> None:
         row["dynamic_smem"] = 0
         row["blocks_per_sm"] = blocks_per_sm(row["registers"], 128, 0)
     print("ptxas: kernel E kernels: " + json.dumps(report))
-    report = ptxas_rows(texts["mask_ema.cu"], r"(mask_ema_kernel)")
-    if len(report) != 1:
-        raise SystemExit(f"no mask_ema kernel in the ptxas report:\n{texts['mask_ema.cu'][-2000:]}")
-    for row in report.values():
-        row["dynamic_smem"] = 8 * 32 * 33 * 4  # kDepth tiles of [32 bins x 33 words]
-        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 32, row["dynamic_smem"])
-    print("ptxas: mask_ema kernel: " + json.dumps(report))
+    report = ptxas_rows(texts["mask_ema.cu"], r"(ema_(?:speculate|fixup))ILb(\d)E")
+    if len(report) != 4:
+        raise SystemExit(f"{len(report)} of the 4 mask_ema kernels in the ptxas report:\n{texts['mask_ema.cu'][-2000:]}")
+    for name, row in report.items():
+        speculate = "speculate" in name
+        row["static_smem"] = (32 + 1) * 257 * 4 if speculate else 4 * 256 * 4  # the chunk slots; the fix-up warps' chunks
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 32 if speculate else 128, row["static_smem"])
+    print("ptxas: mask_ema kernels (<backward>): " + json.dumps(report))
     report = ptxas_rows(texts["ctc_viterbi.cu"], r"(ctc_viterbi_kernel)ILi(\d+)E")
     if len(report) != 4:
         raise SystemExit(f"{len(report)} of the 4 ctc_viterbi kernels in the ptxas report:\n{texts['ctc_viterbi.cu'][-2000:]}")
+    tf = lib.ctc_viterbi_tile_frames(CTC_VOCAB)
     for name, row in report.items():
         k = int(re.search(r"<(\d+)>", name).group(1))
-        row["max_states"] = 1024 * k
-        row["blocks_per_sm_at_1024_threads"] = blocks_per_sm(row["registers"], 1024, 0)
-    print("ptxas: ctc_viterbi kernels (<states a thread>; static shared memory only): " + json.dumps(report))
+        row["max_states"] = min(8 * 256 * k, 16383)  # 8 blocks of at most 256 threads
+        # a block of 8 warps: the ring and 8 warps' edge slots (the backtrack's windows are smaller)
+        row[f"dynamic_smem_v{CTC_VOCAB}_8_warps"] = 3 * tf * CTC_VOCAB * 4 + (tf + 1) * 8 * 16
+    print(f"ptxas: ctc_viterbi kernels (<states a thread>; ring tiles of {tf} frames at V {CTC_VOCAB}; static "
+          f"shared memory: the edge slots from the block before): " + json.dumps(report))
+
+
+def alu_latency_ns(lib) -> float:
+    """The latency of one dependent float add or max on this card (ns), as
+    ``viterbi_chain_floor`` measures it."""
+    return viterbi_chain_floor(lib, 2, 1)["alu_ns"]
 
 
 def viterbi_chain_floor(lib, F: int, K: int) -> dict:
@@ -1007,7 +1019,7 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
     from prosody_control_french_tts_tpu_torch.audio import denoise as denoise_mod
     from prosody_control_french_tts_tpu_torch.audio.separate import MaskSeparator
     from prosody_control_french_tts_tpu_torch.core import batch_runner, profiling
-    from prosody_control_french_tts_tpu_torch.ops import candidates, mask_ema, viterbi
+    from prosody_control_french_tts_tpu_torch.ops import candidates, kernels, mask_ema, viterbi
     from prosody_control_french_tts_tpu_torch.ops.stft import stft
     from prosody_control_french_tts_tpu_torch.prosody.measure import measure_voice
     from prosody_control_french_tts_tpu_torch.utils.wavio import Audio, read_wav
@@ -1074,7 +1086,9 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
     brute = read_wav(base / "Data" / "voice" / "mv_a" / "brute" / "segment.wav").to_mono()
     x = torch.from_numpy(np.ascontiguousarray(brute.samples, np.float32)).to(dev)
     m = denoise_mod.gate_mask(stft(x, 1024, 256))
+    mask_ema.reset_fixups()
     got = mask_ema.mask_ema(m)
+    fixups = mask_ema.fixup_count()
     want = mask_ema.mask_ema_plain(m)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -1084,9 +1098,14 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
     plain_ema = cuda_ms(lambda: mask_ema.mask_ema_plain(m), reps=1, warmup=0)
     bytes_ema = 2 * m.numel() * 4  # the mask read once, the result written once
     bound_ema = bytes_ema / HBM_BYTES_PER_S * 1e3
+    # one chain a bin: 2 (T - 1) dependent steps of a multiply then an add
+    alu_ns = alu_latency_ns(kernels.library())
+    chain_ema = 2 * (m.shape[1] - 1) * 2 * alu_ns / 1e6
     print(f"kernel mask_ema: mask {tuple(m.shape)} of the {brute.duration_seconds:.1f} s recording, bit-equal to its plain "
-          f"version; ms={ms_ema:.4f} (CUDA-graph replay) bound_ms={bound_ema:.5f} (bytes {bytes_ema}) plain_ms={plain_ema:.1f} "
-          f"card={card}")
+          f"version; ms={ms_ema:.4f} (CUDA-graph replay) bound_ms={bound_ema:.5f} (bytes {bytes_ema}) chain_floor_ms="
+          f"{chain_ema:.4f} (one chain a bin: 2 x ({m.shape[1]} - 1) steps x (mul + add) at {alu_ns:.2f} ns each, "
+          f"measured on this card) fixups={fixups} (chunks recomputed, warm-up {mask_ema.WARMUP} frames) "
+          f"plain_ms={plain_ema:.1f} card={card}")
 
     # the denoisers on the card against the CPU, on a 20 s excerpt, and their seconds per audio-second on the card
     exc = Audio(np.asarray(brute.samples[: int(EXCERPT_S * brute.rate)], np.float32), brute.rate)
@@ -1161,7 +1180,8 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
     print("profile (batched measure): " + json.dumps(batched_trace))
     print("profile (per-voice measure): " + json.dumps(single_trace))
     row = dict(KERNEL_MASK_EMA, launches=spectral_counts["mask_ema"], max_abs_err=err_ema, ms=ms_ema, plain_ms=plain_ema,
-               bound_ms=bound_ema, bound_by="bytes", library_ms=None, check="pass")
+               bound_ms=bound_ema, bound_by="bytes", library_ms=None, check="pass", chain_floor_ms=chain_ema,
+               fixups=fixups, warmup_frames=mask_ema.WARMUP)
     return {"mask_ema": row, "launches": {"pitch_candidates": counts["pitch_candidates"], "viterbi": counts["viterbi"]},
             "viterbi_s30_ms": ms_b30, "viterbi_s10_ms": ms_b10, "err_a": err_a, "err_b": err_b}
 
@@ -2461,6 +2481,7 @@ WHISPER_MIN_ACCURACY = 0.85
 # that rounds the other way moves the attention by a few per cent, and a DP
 # choice between nearly equal paths by a frame
 TOL_ALIGN_S = 0.02
+CTC_VOCAB = 47  # the CTC aligner's classes with the blank (align/ctc_aligner.py)
 KERNEL_CTC = dict(
     name="ctc_viterbi",
     route="cuda",
@@ -2762,52 +2783,72 @@ def aligner_pipeline_phase(tmp: Path, seed: int, card: str) -> dict:
 
 def ctc_kernel_row(calls, pipeline_launches: int, card: str, lib) -> dict:
     """ctc_viterbi against its plain version on every captured call (states
-    and score bit for bit; the plain version on the CPU), then its time on the
-    largest call (the pipeline's Final Transcribe): the kernel alone as a
-    CUDA-graph replay beside the plain version on the card, the bytes bound
-    (the emissions of the frames it advances read once, the pointers written
-    and read once, the states written) and the forward chain's floor (a
-    shuffle and three dependent add/max a frame, latencies measured on this
-    card by ``viterbi_latency_probe``)."""
+    and score bit for bit; the plain version, with its [T, S] gather, on the
+    CPU), then its time on the largest call (the pipeline's Final
+    Transcribe): the kernel alone as a CUDA-graph replay beside the plain
+    version on the card, ``ctc_forced_align`` as a whole call (host wall,
+    synchronised: the host checks and the one upload included), the bytes
+    bound (the advanced frames' log-probabilities [Tv, V] read once, 2-bit
+    pointers written and read once, the states written, the states' labels
+    and skips read) and the forward chain's floor (a shuffle and three
+    dependent add/max a frame, latencies measured on this card by
+    ``viterbi_latency_probe``)."""
     import torch
 
     from prosody_control_french_tts_tpu_torch.ops import ctc_viterbi, kernels
 
     checked = 0
-    for (emit, skip, inp, lab), _ in calls:
-        got_states, got_score = ctc_viterbi.ctc_viterbi(emit, skip, inp, lab)
-        for b in range(emit.shape[0]):
-            ws, wsc = ctc_viterbi.ctc_viterbi_plain(emit[b].cpu(), skip[b].cpu(), int(inp[b]), int(lab[b]))
+    for (lp, ext, skip, inp, lab), _ in calls:
+        got_states, got_score = ctc_viterbi.ctc_viterbi(lp, ext, skip, inp, lab)
+        for b in range(lp.shape[0]):
+            emit = lp[b].cpu()[:, ext[b]]
+            ws, wsc = ctc_viterbi.ctc_viterbi_plain(emit, skip[b], int(inp[b]), int(lab[b]))
             if not torch.equal(got_states[b].cpu(), ws) or got_score[b].cpu().view(torch.int32) != wsc.view(torch.int32):
-                raise SystemExit(f"ctc_viterbi differs from its plain version at [T, S] {tuple(emit.shape[1:])}")
+                raise SystemExit(f"ctc_viterbi differs from its plain version at [T, V, S] {(*lp.shape[1:], ext.shape[1])}")
             checked += 1
-    (emit, skip, inp, lab), _ = max(calls, key=lambda c: c[0][0].numel())
-    _, T, S = emit.shape
+    (lp, ext, skip, inp, lab), _ = max(calls, key=lambda c: c[0][0].shape[1] * c[0][1].shape[1])
+    _, T, V = lp.shape
+    S = ext.shape[1]
     Tv = min(max(int(inp[0]), 1), T)
-    inp_d, lab_d = inp.to(emit.device, torch.int32), lab.to(emit.device, torch.int32)
-    sk = skip.to(torch.uint8)
-    back = torch.empty((1, max(T - 1, 1), S), dtype=torch.int8, device=emit.device)
-    states = torch.empty((1, T), dtype=torch.int32, device=emit.device)
-    score = torch.empty((1,), dtype=torch.float32, device=emit.device)
+    kK = lib.ctc_viterbi_states_per_thread(S)
+    C = lib.ctc_viterbi_cluster_blocks(S, kK)
+    meta = torch.cat([inp.int(), lab.int(), ext.int().reshape(-1), skip.int().reshape(-1)]).to(lp.device)
+    back = torch.empty((1, lib.ctc_viterbi_back_words(T, S, kK, C)), dtype=torch.int32, device=lp.device)
+    states = torch.empty((1, T), dtype=torch.int32, device=lp.device)
+    score = torch.empty((1,), dtype=torch.float32, device=lp.device)
 
     def launch():
-        kernels.check(lib.ctc_viterbi_launch(emit.data_ptr(), sk.data_ptr(), inp_d.data_ptr(), lab_d.data_ptr(),
-                                             back.data_ptr(), states.data_ptr(), score.data_ptr(), 1, T, S,
-                                             kernels.stream_ptr(emit)), "ctc_viterbi")
+        kernels.check(lib.ctc_viterbi_launch(lp.data_ptr(), meta[2:].data_ptr(), meta[2 + S:].data_ptr(), meta.data_ptr(),
+                                             meta[1:].data_ptr(), back.data_ptr(), states.data_ptr(), score.data_ptr(),
+                                             1, T, S, V, kK, C, kernels.stream_ptr(lp)), "ctc_viterbi")
 
     ms = graph_ms(launch, reps=10)
-    plain_ms = cuda_ms(lambda: ctc_viterbi.ctc_viterbi_plain(emit[0], skip[0], int(inp[0]), int(lab[0])), reps=1, warmup=0)
-    nbytes = Tv * S * 4 + 2 * (Tv - 1) * S + T * 4
+    labels, blank = ext[0, 1::2], int(ext[0, 0])
+    ctc_viterbi.ctc_forced_align(lp[0], labels, int(inp[0]), int(lab[0]), blank)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ctc_viterbi.ctc_forced_align(lp[0], labels, int(inp[0]), int(lab[0]), blank)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3 / reps
+    emit0, skip0 = lp[0][:, ext[0].to(lp.device)], skip[0].to(lp.device)
+    plain_ms = cuda_ms(lambda: ctc_viterbi.ctc_viterbi_plain(emit0, skip0, int(inp[0]), int(lab[0])), reps=1, warmup=0)
+    ptr_row = -(-2 * S // 8)  # bytes of a frame's pointers at 2 bits a state
+    nbytes = Tv * V * 4 + 2 * (Tv - 1) * ptr_row + T * 4 + S * 8
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     floor = viterbi_chain_floor(lib, Tv, 2)
     chain_ms = (Tv - 1) * (floor["shfl_ns"] + 3 * floor["alu_ns"]) / 1e6
     row = dict(KERNEL_CTC, launches=pipeline_launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-               bound_by="bytes", library_ms=None, check="pass", calls_checked=checked, shape_T_S_Tv=[T, S, Tv],
-               chain_floor_ms=chain_ms)
-    print(f"kernel ctc_viterbi: ms={ms:.4f} (CUDA-graph replay at [T, S] [{T}, {S}], {Tv} frames advanced: the pipeline's "
-          f"Final Transcribe) launches={pipeline_launches} bound_ms={bound:.5f} (bytes {nbytes}) chain_floor_ms={chain_ms:.4f} "
-          f"(({Tv} - 1) x (shfl {floor['shfl_ns']:.2f} ns + 3 x add/max {floor['alu_ns']:.2f} ns)) plain_ms={plain_ms:.1f} "
-          f"max_abs_err=0 (states and score bit-equal on {checked} captured calls) card={card}")
+               bound_by="bytes", library_ms=None, check="pass", calls_checked=checked, shape_T_V_S_Tv=[T, V, S, Tv],
+               states_per_thread=kK, cluster_blocks=C, chain_floor_ms=chain_ms, call_ms=call_ms)
+    print(f"kernel ctc_viterbi: ms={ms:.4f} (CUDA-graph replay at [T, V] [{T}, {V}], S {S}, {Tv} frames advanced, {kK} "
+          f"states a thread, {C} blocks: the pipeline's Final Transcribe) ctc_forced_align call_ms={call_ms:.4f} (host wall, "
+          f"synchronised, {reps} calls) launches={pipeline_launches} bound_ms={bound:.5f} (bytes {nbytes}: log-probs "
+          f"{Tv * V * 4}, 2-bit pointers written and read {2 * (Tv - 1) * ptr_row}, states {T * 4}, labels and skips "
+          f"{S * 8}) chain_floor_ms={chain_ms:.4f} (({Tv} - 1) x (shfl {floor['shfl_ns']:.2f} ns + 3 x add/max "
+          f"{floor['alu_ns']:.2f} ns)) plain_ms={plain_ms:.1f} max_abs_err=0 (states and score bit-equal on {checked} "
+          f"captured calls) card={card}")
     return row
 
 

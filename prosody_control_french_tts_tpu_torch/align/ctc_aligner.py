@@ -292,7 +292,8 @@ class CTCAligner:
         logp = torch.log_softmax(logits, dim=-1)
         blank = self.vocab.blank
         logp[:, blank] = logp[:, blank] - torch.tensor(bias, dtype=torch.float32, device=self.device)
-        states, score = ctc_forced_align(logp, torch.from_numpy(labels).to(self.device), n_frames, n_labels, blank=blank)
+        # the labels stay on the host: the Viterbi checks them there and uploads them with its other inputs
+        states, score = ctc_forced_align(logp, torch.from_numpy(labels), n_frames, n_labels, blank=blank)
         return states.cpu().numpy(), float(score)
 
     def _speech_mask(self, a16: Audio) -> np.ndarray:

@@ -12,134 +12,216 @@
 // __fadd_rn, --fmad=false), as in the plain PyTorch loop
 // (ops/mask_ema.py:mask_ema_plain), so the two agree bit for bit.
 //
-// What bounds it on the card: the recurrence is a dependent chain of 2 (T-1)
-// multiply-add steps per bin (a few hundred thousand cycles at T ~ 27,500),
-// and only F (513) chains exist, so few warps run and the memory traffic
-// (the mask read, the backward result written and read back, the result
-// written) has to be hidden behind the chain by prefetch. Design: one thread
-// per bin, one warp per block of 32 bins. The warp walks the frames in tiles
-// of 32: a tile [32 bins x 32 frames] is brought into shared memory by
-// asynchronous copies (each of the 32 copies of a lane is one coalesced
-// 128-byte row of one bin), kDepth tiles in flight ahead of the one being
-// used; each lane then takes its bin's 32 values into registers (rows padded
-// to 33 words: no bank conflicts either way), runs its 32 steps there, puts
-// the results back in place, and the warp stores the tile back coalesced.
-// The backward pass writes out, and the forward pass reads out back tile by
-// tile; a lane reads back exactly the addresses it stored, so a block-scope
-// fence between the passes is all the ordering they need.
+// What bounds it on the card: each bin's recurrence is a dependent chain of
+// 2 (T - 1) multiply-add steps, and only F (513) bins exist, so one chain a
+// bin can never go below the chain's latency (about 0.2 ms at T ~ 27,500)
+// and keeps few SMs busy. The design splits every chain and verifies the
+// split, so the work spreads over the card and the memory traffic (the mask
+// read, the backward result written and read back, the result written)
+// bounds it.
+//
+// Speculate and verify. A pass (backward, then forward over its result) is
+// cut into chunks of kChunk frames in the pass's order. One thread takes one
+// (bin, chunk): it restarts the recurrence W frames before its chunk (from
+// that frame's value, as the pass starts from its first frame), runs the W
+// warm-up steps, keeps the state it enters its chunk with, and runs the
+// chunk. The recurrence forgets its start: the gap between two chains is
+// multiplied by a each step and rounds away, and one step is a function of
+// (state, input) alone, so a chain that enters the chunk with the true state
+// bit for bit gives every value of the chunk exactly. Chunk 0 starts the
+// pass and is exact. A fix-up launch then walks each bin's chunks in order
+// (one warp a bin): it compares each chunk's entered state with the true
+// output before it (32 chunks a ballot while nothing was recomputed), and
+// recomputes from the true state a chunk that entered wrong (the warp stages
+// the chunk's inputs, one lane runs the chain, the warp stores it), then
+// compares the next chunk with that chunk's new last value. Every value is
+// exact whatever smooth is; a mask that never forgets its start (smooth
+// near 1) recomputes every chunk, which is the sequential chain again.
+// Recomputed chunks are counted into a device counter.
+//
+// A speculative block is one warp of kChunks chunks of one bin: the frames
+// it needs are staged in shared memory by 4-byte asynchronous copies
+// (coalesced, any row length; rows of T floats are not 16-byte aligned), one
+// slot of kChunk + 1 words a chunk so that the lanes, each in its own chunk,
+// read distinct banks; the results are written in place after a barrier (a
+// lane's warm-up reads the slot before its own, which that lane's neighbour
+// overwrites) and stored back coalesced. The lines marked // [phase: ...]
+// are cut by tools/mask_ema_phases.py to split the time.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 32;  // bins of a block, one a lane
-constexpr int kTile = 32;   // frames of a tile
-constexpr int kPad = 33;    // shared-memory row stride of a tile, in words
-constexpr int kDepth = 8;   // tiles in flight
-constexpr int kTileWords = kLanes * kPad;
-
-// Issue the asynchronous copies of the tile starting at frame t0 into slot,
-// then commit them as one group (possibly empty: every lane commits one group
-// per call, so the group counts stay in step across the warp).
-__device__ __forceinline__ void load_tile(float* slot, const float* __restrict__ src, int F, long long T, int b0,
-                                          long long t0, int lane) {
-  const long long t = t0 + lane;
-  if (t < T) {
-#pragma unroll 8
-    for (int j = 0; j < kLanes; ++j) {
-      if (b0 + j < F) __pipeline_memcpy_async(slot + j * kPad + lane, src + (long long)(b0 + j) * T + t, sizeof(float));
-    }
-  }
-  __pipeline_commit();
-}
+constexpr int kChunk = 256;          // frames of a chunk (C)
+constexpr int kChunks = 32;          // chunks of a speculative block, one a lane
+constexpr int kSlot = kChunk + 1;    // shared-memory words of a chunk's slot
+constexpr int kFixWarps = 4;         // bins of a fix-up block, one a warp
+constexpr unsigned kFull = 0xffffffffu;
 
 // One step of the recurrence, each operation rounded on its own.
 __device__ __forceinline__ float ema_step(float v, float x, float a, float b) {
   return __fadd_rn(__fmul_rn(a, v), __fmul_rn(b, x));
 }
 
-// One pass over every frame of the block's bins: backward (from frame T - 1
-// down) or forward (from frame 0 up), src to dst. A lane takes its bin's 32
-// values of the tile into registers, runs the 32 steps on them (no branch in
-// a full tile that does not start the pass), and puts them back for the
-// warp's coalesced stores. The lines marked // [phase: ...] are cut by
-// tools/mask_ema_phases.py to split the time.
+// The frame of pass position p (p = 0 is the pass's first frame).
 template <bool kBackward>
-__device__ void ema_pass(const float* src, float* dst, float* smem, int F, long long T, int b0, int lane, float a,
-                         float b) {
-  const long long tiles = (T + kTile - 1) / kTile;
-  const long long first = kBackward ? T - 1 : 0;
-  auto tile_start = [&](long long i) { return (kBackward ? tiles - 1 - i : i) * kTile; };
-  for (int p = 0; p < kDepth - 1; ++p) {
-    if (p < tiles) {
-      load_tile(smem + p * kTileWords, src, F, T, b0, tile_start(p), lane);
-    } else {
-      __pipeline_commit();
-    }
-  }
-  float v = 0.0f;
-  for (long long i = 0; i < tiles; ++i) {
-    __syncwarp();  // every lane is done with the slot the next copies overwrite
-    const long long ahead = i + kDepth - 1;
-    if (ahead < tiles) {
-      load_tile(smem + (ahead % kDepth) * kTileWords, src, F, T, b0, tile_start(ahead), lane);
-    } else {
-      __pipeline_commit();
-    }
-    __pipeline_wait_prior(kDepth - 1);  // this lane's copies of tile i have landed
-    __syncwarp();                       // and every other lane's
-    float* tile = smem + (i % kDepth) * kTileWords;
-    float* row = tile + lane * kPad;  // a lane past F reads and writes a row no copy fills and no store reads
-    const long long t0 = tile_start(i);
-    float x[kTile];
-#pragma unroll
-    for (int k = 0; k < kTile; ++k) x[k] = row[k];
-    if (i == 0 || t0 + kTile > T) {
-      // the pass's first tile (its first frame starts the recurrence), or the partial last tile
-#pragma unroll
-      for (int kk = 0; kk < kTile; ++kk) {
-        const int k = kBackward ? kTile - 1 - kk : kk;
-        if (t0 + k < T) x[k] = v = (t0 + k == first) ? x[k] : ema_step(v, x[k], a, b);  // [phase: chain]
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kTile; ++kk) {
-        const int k = kBackward ? kTile - 1 - kk : kk;
-        x[k] = v = ema_step(v, x[k], a, b);  // [phase: chain]
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kTile; ++k) row[k] = x[k];
-    __syncwarp();
-    const long long t = t0 + lane;
-    if (t < T) {
-#pragma unroll 8
-      for (int j = 0; j < kLanes; ++j) {  // [phase: stores]
-        if (b0 + j < F) dst[(long long)(b0 + j) * T + t] = tile[j * kPad + lane];
-      }
-    }
-  }
-  __pipeline_wait_prior(0);
-  __syncwarp();
+__device__ __forceinline__ long long frame_of(long long p, long long T) {
+  return kBackward ? T - 1 - p : p;
 }
 
-__global__ void __launch_bounds__(kLanes)
-    mask_ema_kernel(const float* __restrict__ mask, float* out, int F, long long T, float a, float b) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x;
-  const int b0 = blockIdx.x * kLanes;
-  ema_pass<true>(mask, out, smem, F, T, b0, lane, a, b);
-  __threadfence_block();
-  ema_pass<false>(out, out, smem, F, T, b0, lane, a, b);
+// Speculative pass: block (x, f) takes chunks k0 .. k0 + 31 of bin f, lane j
+// chunk k0 + j. Shared slot q holds chunk k0 - 1 + q (slot 0 only its last W
+// frames: the first lane's warm-up).
+template <bool kBackward>
+__global__ void __launch_bounds__(kChunks)
+    ema_speculate(const float* __restrict__ src, float* __restrict__ dst, float* __restrict__ enter, long long T, int K,
+                  float a, float b, int W) {
+  __shared__ float xs[(kChunks + 1) * kSlot];
+  const int f = blockIdx.y;
+  const int j = threadIdx.x;
+  const long long k0 = (long long)blockIdx.x * kChunks;
+  const long long base = (k0 - 1) * kChunk;  // pass position of slot 0's first word
+  const float* row = src + (long long)f * T;
+  float* out = dst + (long long)f * T;
+  const long long lo = k0 * kChunk - W > 0 ? k0 * kChunk - W : 0;
+  const long long hi = (k0 + kChunks) * kChunk < T ? (k0 + kChunks) * kChunk : T;
+  auto at = [&](long long p) -> float& {
+    const unsigned r = (unsigned)(p - base);
+    return xs[r + r / kChunk];
+  };
+  for (long long p = lo + j; p < hi; p += kChunks) {
+    __pipeline_memcpy_async(&at(p), row + frame_of<kBackward>(p, T), sizeof(float));  // [phase: loads]
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const long long k = k0 + j;
+  const long long p0 = k * kChunk;
+  float* mine = xs + (j + 1) * kSlot;
+  float v = 0.0f;
+  if (p0 < T) {
+    if (k == 0) {
+      v = mine[0];  // the pass's first frame starts the recurrence
+    } else {
+      const int warm = (int)(p0 - W > 0 ? W : p0);  // frames of warm-up (fewer near the pass's start)
+      const float* prev = xs + j * kSlot + kChunk - warm;
+      v = prev[0];
+#pragma unroll 8
+      for (int i = 1; i < warm; ++i) v = ema_step(v, prev[i], a, b);  // [phase: chain]
+      enter[(long long)f * K + k] = v;
+    }
+  }
+  __syncthreads();  // every warm-up read is done before any lane overwrites a slot
+  if (p0 < T) {
+    const int n = (int)(T - p0 < kChunk ? T - p0 : kChunk);
+    if (n == kChunk && k != 0) {
+#pragma unroll 8
+      for (int i = 0; i < kChunk; ++i) mine[i] = v = ema_step(v, mine[i], a, b);  // [phase: chain]
+    } else {
+      for (int i = k == 0 ? 1 : 0; i < n; ++i) mine[i] = v = ema_step(v, mine[i], a, b);  // [phase: chain]
+    }
+  }
+  __syncthreads();
+  for (long long p = k0 * kChunk + j; p < hi; p += kChunks) {
+    out[frame_of<kBackward>(p, T)] = at(p);  // [phase: stores]
+  }
+}
+
+// Fix-up: warp w of block x walks the chunks of bin x * kFixWarps + w in
+// order. While nothing was recomputed, the entered states of 32 chunks are
+// compared in one ballot with the speculative pass's outputs before them
+// (exact, as every earlier chunk is); after a recomputed chunk, the next one
+// is compared with its new last value. A chunk that entered wrong is
+// recomputed from the true state and counted.
+template <bool kBackward>
+__global__ void __launch_bounds__(kFixWarps * 32)
+    ema_fixup(const float* __restrict__ src, float* __restrict__ dst, const float* __restrict__ enter,
+              unsigned long long* __restrict__ fixups, int F, long long T, int K, float a, float b) {
+  __shared__ float buf[kFixWarps][kChunk];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int f = blockIdx.x * kFixWarps + w;
+  if (f >= F) return;  // a whole warp; the block has no barrier
+  const float* row = src + (long long)f * T;
+  float* out = dst + (long long)f * T;
+  const float* ent = enter + (long long)f * K;
+  float* sb = buf[w];
+  bool changed = false;  // the chunk before k was recomputed; `last` holds its last value
+  float last = 0.0f;
+  unsigned long long count = 0;
+  int k = 1;
+  while (k < K) {
+    if (!changed) {
+      const int kk = k + lane;
+      bool bad = false;
+      if (kk < K) {
+        bad = __float_as_uint(ent[kk]) != __float_as_uint(out[frame_of<kBackward>((long long)kk * kChunk - 1, T)]);
+      }
+      const unsigned miss = __ballot_sync(kFull, bad);
+      if (!miss) {
+        k += 32;
+        continue;
+      }
+      k += __ffs(miss) - 1;
+      last = out[frame_of<kBackward>((long long)k * kChunk - 1, T)];
+    } else if (__float_as_uint(ent[k]) == __float_as_uint(last)) {
+      changed = false;
+      ++k;
+      continue;
+    }
+    // recompute chunk k from the true state `last`
+    const long long p0 = (long long)k * kChunk;
+    const int n = (int)(T - p0 < kChunk ? T - p0 : kChunk);
+    for (int i = lane; i < n; i += 32) sb[i] = row[frame_of<kBackward>(p0 + i, T)];
+    __syncwarp();
+    if (lane == 0) {
+      float v = last;
+      for (int i = 0; i < n; ++i) sb[i] = v = ema_step(v, sb[i], a, b);
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) out[frame_of<kBackward>(p0 + i, T)] = sb[i];
+    last = sb[n - 1];
+    __syncwarp();  // every lane has read sb before the next chunk is staged
+    changed = true;
+    ++count;
+    ++k;
+  }
+  if (lane == 0 && count) atomicAdd(fixups, count);
+}
+
+template <bool kBackward>
+cudaError_t run_pass(const float* src, float* dst, float* enter, unsigned long long* fixups, int F, long long T, int K,
+                     float a, float b, int W, cudaStream_t stream) {
+  const dim3 grid((unsigned)((K + kChunks - 1) / kChunks), (unsigned)F);
+  ema_speculate<kBackward><<<grid, kChunks, 0, stream>>>(src, dst, enter, T, K, a, b, W);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || K < 2) return err;
+  ema_fixup<kBackward><<<(F + kFixWarps - 1) / kFixWarps, kFixWarps * 32, 0, stream>>>(src, dst, enter, fixups, F, T, K, a, b);  // [phase: fixup]
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mask_ema_launch(const void* mask, void* out, int F, long long T, float a, float b, void* stream) {
+// Chunks of kChunk frames in T frames: the length of a bin's row of
+// entered states.
+extern "C" int mask_ema_chunks(long long T) { return (int)((T + kChunk - 1) / kChunk); }
+
+// mask, out, scratch [F, T] float32 (scratch takes the backward pass),
+// enter [F, mask_ema_chunks(T)] float32 (workspace), fixups one uint64 on
+// the card (the recomputed chunks are added to it), warm-up frames W in
+// [1, kChunk]. Four launches on the stream: each pass's speculative launch
+// and its fix-up.
+extern "C" int mask_ema_launch(const void* mask, void* out, void* scratch, void* enter, void* fixups, int F,
+                               long long T, float a, float b, int W, void* stream) {
   if (F <= 0 || T <= 0) return (int)cudaGetLastError();
-  const int blocks = (F + kLanes - 1) / kLanes;
-  const size_t smem = (size_t)kDepth * kTileWords * sizeof(float);
-  mask_ema_kernel<<<blocks, kLanes, smem, (cudaStream_t)stream>>>((const float*)mask, (float*)out, F, T, a, b);
-  return (int)cudaGetLastError();
+  if (W < 1 || W > kChunk || F > 65535) return (int)cudaErrorInvalidValue;
+  const int K = mask_ema_chunks(T);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = run_pass<true>((const float*)mask, (float*)scratch, (float*)enter, (unsigned long long*)fixups, F,
+                                   T, K, a, b, W, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)run_pass<false>((const float*)scratch, (float*)out, (float*)enter, (unsigned long long*)fixups, F, T, K,
+                              a, b, W, st);
 }

@@ -85,12 +85,21 @@ _SIGNATURES = {
     "frames_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
     # x, out, R, C, stream
     "chunk_cumsum_launch": (_VP, _VP, _I, _I, _VP),
-    # mask, out, F, T, smooth, 1 - smooth, stream
-    "mask_ema_launch": (_VP, _VP, _I, ctypes.c_longlong, _F, _F, _VP),
-    # emit, skip, input_len, label_len, back, states, score, B, T, S, stream
-    "ctc_viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP),
-    # S -> states a thread holds (0: more than one block takes)
+    # mask, out, scratch, enter, fixups, F, T, smooth, 1 - smooth, warm-up frames, stream
+    "mask_ema_launch": (_VP, _VP, _VP, _VP, _VP, _I, ctypes.c_longlong, _F, _F, _I, _VP),
+    # T -> chunks of a bin's row (the entered states' row length)
+    "mask_ema_chunks": (ctypes.c_longlong,),
+    # log_probs, ext, skip, input_len, label_len, back, states, score, B, T, S, V, states a thread, blocks a
+    # sequence (0, 0: the defaults), stream
+    "ctc_viterbi_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
+    # S -> states a thread by default (0: more than the kernel takes)
     "ctc_viterbi_states_per_thread": (_I,),
+    # S, states a thread -> blocks of a sequence's cluster by default
+    "ctc_viterbi_cluster_blocks": (_I, _I),
+    # V -> frames of a ring tile (0: V too wide)
+    "ctc_viterbi_tile_frames": (_I,),
+    # T, S, states a thread, blocks -> 32-bit words of a sequence's packed pointers (returns a 64-bit int)
+    "ctc_viterbi_back_words": (_I, _I, _I, _I),
     # q, k, v, o, l, m, plan, n_plan, B, H, KVH, L, hd, strides (12 int64, host), scale, dtype, stream
     "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
     # q, k, v, o, do, l, m, di, lse2, dk_part, dv_part, dq, dk, dv, plan_q, plan_k, n_plan, B, H, KVH, L, hd,
@@ -100,6 +109,9 @@ _SIGNATURES = {
     # kernel (0 forward, 1 dq, 2 dk/dv), hd, dtype (0 float32, 1 bfloat16) -> bytes of dynamic shared memory
     "flash_attn_smem_bytes": (_I, _I, _I),
 }
+
+
+_RESTYPES = {"ctc_viterbi_back_words": ctypes.c_longlong}  # every other function returns an int
 
 
 def resolve_device(device) -> torch.device:
@@ -174,7 +186,7 @@ def library():
         for fn, args in _SIGNATURES.items():
             f = getattr(lib, fn)
             f.argtypes = list(args)
-            f.restype = ctypes.c_int
+            f.restype = _RESTYPES.get(fn, ctypes.c_int)
         _LIB = lib
     return _LIB
 

@@ -965,6 +965,53 @@ def test_mask_ema_kernel_is_deterministic_and_checks(cuda):
         mask_ema.mask_ema(m[None])
 
 
+def sparse_ones(F, T, every=500):
+    """Exact zeros with a 1 every ``every`` frames: restarted chains meet
+    the true one late, near the subnormal floor."""
+    m = np.zeros((F, T), np.float32)
+    m[:, ::every] = 1.0
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [("fixture", 513, 6000, 0.999), ("fixture", 513, 1027, 0.999), ("fixture", 33, 6000, 0.99),
+                                  ("zeros", 64, 6000, 0.5), ("zeros", 513, 27478, 0.5)])
+def test_mask_ema_kernel_fixups_stay_exact(cuda, case):
+    """Chunks that enter with another state than the true one are recomputed
+    by the fix-up launches, bit for bit: smooth near 1 (nearly every chunk)
+    and long stretches of exact zeros; the fix-up count is read."""
+    kind, F, T, smooth = case
+    m_np = mask_fixture(F, T, seed=F + T) if kind == "fixture" else sparse_ones(F, T)
+    m = torch.from_numpy(m_np).to(cuda)
+    want = mask_ema.mask_ema_plain(m, smooth)
+    mask_ema.reset_fixups()
+    got = mask_ema.mask_ema(m, smooth)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    fixes = mask_ema.fixup_count()
+    if kind == "fixture":  # smooth near 1: every chunk past the warm-up's reach, both passes
+        assert fixes > 0.9 * 2 * F * (-(-T // 256) - 2)
+    else:
+        assert fixes > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(513, 255), (513, 256), (513, 257), (7, 1027), (513, 5001), (2, 8194)])
+@pytest.mark.parametrize("smooth", [0.5, 0.9])
+def test_mask_ema_kernel_chunk_edges(cuda, shape, smooth):
+    """T below one chunk, one chunk, one chunk and a frame, T not a
+    multiple of 4, a partial last block of chunks; no fix-up at smooth 0.5
+    on the fixture."""
+    m = torch.from_numpy(mask_fixture(*shape, seed=shape[1])).to(cuda)
+    want = mask_ema.mask_ema_plain(m, smooth)
+    mask_ema.reset_fixups()
+    got = mask_ema.mask_ema(m, smooth)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if smooth == 0.5:
+        assert mask_ema.fixup_count() == 0
+
+
 # ---------------------------------------------------------------------------
 # ctc_viterbi (the CTC aligner's forced-alignment Viterbi; no TPU kernel)
 # ---------------------------------------------------------------------------
@@ -1046,37 +1093,98 @@ def test_ctc_viterbi_kernel_frozen_frames_padded_labels_equal_columns(cuda, shap
 
 
 @pytest.mark.gpu
-def test_ctc_viterbi_kernel_batch_and_checks(cuda):
-    """Several sequences in one launch (one block each), each equal to its
-    own plain alignment; the wrapper counts launches and refuses what the
-    kernel cannot take."""
-    B, T, L = 5, 300, 40
-    lp, labels = ctc_fixture(T, L, seed=7, ties=True)
-    ext = ctc_viterbi.expand_labels(labels.long(), 0)
-    emit = lp[:, ext]
-    S = ext.shape[0]
-    s_idx = torch.arange(S)
+@pytest.mark.parametrize("shape", [(15, 64), (300, 700), (2200, 7300)])
+def test_ctc_viterbi_kernel_v48_and_unaligned_rows(cuda, shape):
+    """V 48 (the aligner's vocabulary: 192-byte rows, 16-byte copies) and a
+    sequence whose rows do not start 16-byte aligned (4-byte copies)."""
+    L, T = shape
+    lp, labels = ctc_fixture(T, L, seed=L + 3 * T, V=48, ties=True)
+    ctc_kernel_vs_plain(cuda, lp, labels, T, L)
+    lp47, labels47 = ctc_fixture(T + 1, L, seed=L + T, V=47)
+    want_states, want_score = ctc_viterbi.ctc_forced_align_plain(lp47[1:], labels47, T, L)
+    got_states, got_score = ctc_viterbi.ctc_forced_align(lp47.to(cuda)[1:], labels47, T, L)  # starts 188 bytes in
+    torch.cuda.synchronize()
+    assert torch.equal(got_states.cpu(), want_states)
+    assert got_score.cpu().view(torch.int32).item() == want_score.view(torch.int32).item()
+
+
+def ctc_host_inputs(labels, blank=0):
+    ext = ctc_viterbi.expand_labels(labels.long(), blank)
+    s_idx = torch.arange(ext.shape[0])
     skip = (s_idx >= 2) & (s_idx % 2 == 1) & (ext != torch.roll(ext, 2))
-    in_lens = torch.tensor([300, 1, 150, 299, 77], dtype=torch.int32)
+    return ext, skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [47, 48])
+def test_ctc_viterbi_kernel_every_instantiation(cuda, V):
+    """2, 4, 8 and 16 states a thread (the launch's explicit kK), each on
+    clusters of 1, 2, 3 and 8 blocks, at the same 401 states: states and
+    score bit-equal to the plain version."""
+    from prosody_control_french_tts_tpu_torch.ops import kernels
+
+    T, L = 500, 200
+    lp, labels = ctc_fixture(T, L, seed=V, V=V, ties=True)
+    ext, skip = ctc_host_inputs(labels)
+    S = ext.shape[0]
+    want_states, want_score = ctc_viterbi.ctc_forced_align_plain(lp, labels, T - 7, L)
+    lib = kernels.library()
+    lp_d = lp[None].to(cuda)
+    meta = torch.cat([torch.tensor([T - 7, L]), ext, skip.long()]).int().to(cuda)
+    for kK in (2, 4, 8, 16):
+        for C in (1, 2, 3, 8):  # at 8 blocks and 2 states a thread, the last block holds no state
+            back = torch.empty((1, lib.ctc_viterbi_back_words(T, S, kK, C)), dtype=torch.int32, device=cuda)
+            states = torch.empty((1, T), dtype=torch.int32, device=cuda)
+            score = torch.empty((1,), dtype=torch.float32, device=cuda)
+            rc = lib.ctc_viterbi_launch(lp_d.data_ptr(), meta[2:].data_ptr(), meta[2 + S:].data_ptr(), meta.data_ptr(),
+                                        meta[1:].data_ptr(), back.data_ptr(), states.data_ptr(), score.data_ptr(), 1, T,
+                                        S, V, kK, C, kernels.stream_ptr(lp_d))
+            kernels.check(rc, "ctc_viterbi")
+            torch.cuda.synchronize()
+            assert torch.equal(states[0].cpu(), want_states), (kK, C)
+            assert score.cpu().view(torch.int32).item() == want_score.view(torch.int32).item()
+
+
+@pytest.mark.gpu
+def test_ctc_viterbi_kernel_batch_and_checks(cuda):
+    """Several sequences in one launch (one block each, rows of odd length so
+    that some sequences start unaligned), each equal to its own plain
+    alignment; the wrapper counts launches and refuses what the kernel
+    cannot take."""
+    B, T, L = 5, 301, 40
+    lp, labels = ctc_fixture(T, L, seed=7, ties=True)
+    ext, skip = ctc_host_inputs(labels)
+    emit = lp[:, ext]
+    in_lens = torch.tensor([301, 1, 150, 299, 77], dtype=torch.int32)
     lab_lens = torch.tensor([40, 0, 20, 39, 40], dtype=torch.int32)
+    lp_b = lp[None].repeat(B, 1, 1).to(cuda)
     n = ctc_viterbi.launches
-    states, score = ctc_viterbi.ctc_viterbi(emit[None].repeat(B, 1, 1).to(cuda), skip[None].repeat(B, 1).to(cuda), in_lens,
-                                            lab_lens)
+    states, score = ctc_viterbi.ctc_viterbi(lp_b, ext[None].repeat(B, 1), skip[None].repeat(B, 1), in_lens, lab_lens)
     assert ctc_viterbi.launches == n + 1
     for b in range(B):
         ws, wsc = ctc_viterbi.ctc_viterbi_plain(emit, skip, int(in_lens[b]), int(lab_lens[b]))
         assert torch.equal(states[b].cpu(), ws)
         assert score[b].cpu().view(torch.int32).item() == wsc.view(torch.int32).item()
-    a, _ = ctc_viterbi.ctc_viterbi(emit[None].to(cuda), skip[None].to(cuda), in_lens[:1], lab_lens[:1])
-    b2, _ = ctc_viterbi.ctc_viterbi(emit[None].to(cuda), skip[None].to(cuda), in_lens[:1], lab_lens[:1])
+    a, _ = ctc_viterbi.ctc_viterbi(lp_b[:1], ext[None], skip[None], in_lens[:1], lab_lens[:1])
+    b2, _ = ctc_viterbi.ctc_viterbi(lp_b[:1], ext[None], skip[None], in_lens[:1], lab_lens[:1])
     assert torch.equal(a, b2)
     big = ctc_viterbi.MAX_STATES + 2
     with pytest.raises(ValueError, match="exceed"):
-        ctc_viterbi.ctc_viterbi(torch.zeros((1, 4, big), device=cuda), torch.zeros((1, big), dtype=torch.bool, device=cuda),
-                                torch.tensor([4]), torch.tensor([1]))
+        ctc_viterbi.ctc_viterbi(torch.zeros((1, 4, 8), device=cuda), torch.zeros((1, big), dtype=torch.int32),
+                                torch.zeros((1, big), dtype=torch.bool), torch.tensor([4]), torch.tensor([1]))
     with pytest.raises(ValueError, match="label_len"):
-        ctc_viterbi.ctc_viterbi(emit[None].to(cuda), skip[None].to(cuda), in_lens[:1], torch.tensor([L + 1]))
+        ctc_viterbi.ctc_viterbi(lp_b[:1], ext[None], skip[None], in_lens[:1], torch.tensor([L + 1]))
+    with pytest.raises(ValueError, match="outside"):
+        ctc_viterbi.ctc_viterbi(lp_b[:1, :, :5].contiguous(), ext[None], skip[None], in_lens[:1], lab_lens[:1])
+    odd_blank = ext.clone()
+    odd_blank[2] = 1
+    with pytest.raises(ValueError, match="even states"):
+        ctc_viterbi.ctc_viterbi(lp_b[:1], odd_blank[None], skip[None], in_lens[:1], lab_lens[:1])
+    with pytest.raises(ValueError, match="host"):
+        ctc_viterbi.ctc_viterbi(lp_b[:1], ext[None].to(cuda), skip[None], in_lens[:1], lab_lens[:1])
+    with pytest.raises(ValueError, match="classes"):
+        ctc_viterbi.ctc_viterbi(torch.zeros((1, 4, 4096), device=cuda), ext[None], skip[None], in_lens[:1], lab_lens[:1])
     with pytest.raises(TypeError):
-        ctc_viterbi.ctc_viterbi(emit[None].double().to(cuda), skip[None].to(cuda), in_lens[:1], lab_lens[:1])
+        ctc_viterbi.ctc_viterbi(lp_b[:1].double(), ext[None], skip[None], in_lens[:1], lab_lens[:1])
     with pytest.raises(ValueError, match="CUDA"):
-        ctc_viterbi.ctc_viterbi(emit[None], skip[None], in_lens[:1], lab_lens[:1])
+        ctc_viterbi.ctc_viterbi(lp[None], ext[None], skip[None], in_lens[:1], lab_lens[:1])
