@@ -3,8 +3,9 @@
 eight-step voice pipeline, the multi-voice pipeline with its denoisers, the
 standalone frame and cumsum kernels, the LLM
 serving path, the LLM training path (LoRA fine-tuning, at L 512 with
-kernel G and at L 1024 / 768 with the flash attention), and the acoustic
-aligners (Whisper, CTC) alone and in the eight-step pipeline.
+kernel G and at L 1024 / 768 with the flash attention), the acoustic
+aligners (Whisper, CTC) alone and in the eight-step pipeline, and the break
+predictors' serving path (the BERT tagger behind the SSML HTTP service).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -156,6 +157,25 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     timed on the Final Transcribe call beside its plain version, its bytes
     bound and its chain's floor, with ``ctc_forced_align`` timed as a whole
     call beside the kernel alone.
+
+20. the break-predictor serving path at bert-base width (``BertConfig()``:
+    hidden 768, 12 layers, 12 heads, ffn 3072, L 128; bench.py's 512-token
+    tokenizer; bfloat16; weights from the seed): ``BreakTagger`` and
+    ``SentenceEncoder`` on the card against the plain CPU path on 8
+    sentences (largest logit difference, the share of words whose BREAK
+    decision agrees; a decision may differ only where the CPU margin is at
+    most 0.05); ``sentences_per_second`` at bench.py's geometry (B 256, L
+    128, 100 forwards) with ms a batch (CUDA events), the device-busy share
+    (torch.profiler) and the share of the bf16 peak at bench.py's operation
+    count; the HTTP service under bench.py's load (96 clients x 12
+    sentences, every bucket warmed, ``serve(port=0)``), batched (max_batch
+    64, 4 ms) and unbatched (max_batch 1): sentences/s, p50/p99, the
+    batcher's stats, every response 200 with a ``<speak`` document; a few
+    requests through the prosody head (SSML with ``<prosody pitch/rate/
+    volume>``); ``run_break_experiment`` (tiny, 2 runs, 2 epochs) and
+    ``run_bilstm_experiment`` (seq_len 1, 2 epochs) on the ``bdd.json`` that
+    phase 15's Export JSON wrote; ten ``train_tagger`` steps at bert-base
+    width (B 64): finite losses, ms a step. This path runs no hand kernel.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fourteen entries (mask_ema and ctc_viterbi,
@@ -1044,6 +1064,7 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
         pipes, pre_pipes, warm_s = drive_all_voices(base, texts, dev, "mask", warm_timer)
     counts = kernel_counts()
     warm_phases = dict(profiling.PHASES)
+    bdd_json = (base / "Out" / "results" / "bdd.json").read_text(encoding="utf-8")  # the break predictors' corpus (phase 20)
     print(f"multi-voice warm run launches: {json.dumps(counts)}")
     if counts["pitch_candidates"] != 2 or counts["viterbi"] != 2:
         raise SystemExit(f"multi-voice: kernels A and B must launch once per (T, rate) group (2), got {counts}")
@@ -1183,7 +1204,7 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
                bound_ms=bound_ema, bound_by="bytes", library_ms=None, check="pass", chain_floor_ms=chain_ema,
                fixups=fixups, warmup_frames=mask_ema.WARMUP)
     return {"mask_ema": row, "launches": {"pitch_candidates": counts["pitch_candidates"], "viterbi": counts["viterbi"]},
-            "viterbi_s30_ms": ms_b30, "viterbi_s10_ms": ms_b10, "err_a": err_a, "err_b": err_b}
+            "viterbi_s30_ms": ms_b30, "viterbi_s10_ms": ms_b10, "err_a": err_a, "err_b": err_b, "bdd_json": bdd_json}
 
 
 # ---------------------------------------------------------------------------
@@ -2852,6 +2873,276 @@ def ctc_kernel_row(calls, pipeline_launches: int, card: str, lib) -> dict:
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# the break-predictor serving path (phase 20)
+# ---------------------------------------------------------------------------
+
+# bench.py:bench_serving's vocabulary and traffic: 96 clients x 12 sentences of 6-14 words
+BERT_WORDS = ("bonjour merci la maison est grande demain nous allons ensemble vers "
+              "la ville et le monde entier écoute cette musique magnifique").split()
+SERVE_CLIENTS, SERVE_PER_CLIENT = 96, 12
+BERT_MARGIN = 0.05  # card vs CPU: a BREAK decision may differ only where the CPU margin |l1 - l0| is at most this
+BERT_BATCH, BERT_ITERS, TRAIN_B = 256, 100, 64  # bench.py:bench_bert's geometry; the trainer's batch
+
+
+def bert_flops_per_sentence(cfg) -> int:
+    """bench.py:bert_mfu's operation count: the encoder's matmuls, the
+    attention's score and value products, and the classifier."""
+    d, L, ffn = cfg.hidden, cfg.max_len, cfg.ffn
+    per_layer = 4 * d * d + 2 * d * ffn
+    att_extra = 2 * 2 * L * d
+    return 2 * L * cfg.layers * (per_layer + att_extra) + 2 * L * d * cfg.num_labels
+
+
+def encode_texts(tok, texts, L: int):
+    """The predictor's padding of ``texts``: ids, mask (one live token in
+    every row) and the word index of each word-initial token."""
+    import numpy as np
+
+    ids = np.full((len(texts), L), tok.pad_id, np.int32)
+    widx = np.full((len(texts), L), -1, np.int32)
+    for i, t in enumerate(texts):
+        a, w = tok.encode_words(t.split())
+        ids[i, : len(a[:L])] = a[:L]
+        widx[i, : len(w[:L])] = w[:L]
+    mask = ids != tok.pad_id
+    mask[:, 0] = True
+    return ids, mask, widx
+
+
+def serve_load(svc, texts, clients: int, per_client: int) -> dict:
+    """bench.py:bench_serving's load: every bucket warmed, ``clients``
+    keep-alive connections (Nagle off) each posting ``per_client`` sentences
+    in turn to ``svc.serve(port=0)``; every response must be 200 with a
+    ``<speak`` document. Returns sentences/s, p50/p99 ms and the batcher's
+    stats."""
+    import faulthandler
+    import http.client
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    httpd = svc.serve(port=0)
+    port = httpd.server_address[1]
+    lat, bad, lock = [], [], threading.Lock()
+
+    def client(chunk):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            for t in chunk:
+                t0 = time.perf_counter()
+                conn.request("POST", "/ssml", json.dumps({"text": t}), {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                dt = time.perf_counter() - t0
+                ok = resp.status == 200 and json.loads(body)["ssml"].startswith("<speak")
+                with lock:
+                    lat.append(dt)
+                    if not ok:
+                        bad.append((resp.status, body[:200]))
+        except Exception as e:  # noqa: BLE001 — a client's failure fails the phase below
+            with lock:
+                bad.append(repr(e))
+        finally:
+            conn.close()
+
+    try:
+        for b in svc.bucket_sizes():
+            svc._predict_batch(texts[:b])
+        torch.cuda.synchronize()
+        svc.batcher.stats.clear()
+        threads = [threading.Thread(target=client, args=(texts[i * per_client : (i + 1) * per_client],), daemon=True)
+                   for i in range(clients)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 300
+        for th in threads:
+            th.join(timeout=max(0.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads):
+            faulthandler.dump_traceback(all_threads=True)
+            raise SystemExit("break tagger serving: clients still waiting after 300 s (every thread's stack above)")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if bad or len(lat) != clients * per_client:
+        raise SystemExit(f"break tagger serving: {len(bad)} bad responses of {len(lat)}: {bad[:3]}")
+    lat_ms = np.asarray(lat) * 1e3
+    return {"sentences_per_s": len(lat) / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall, **svc.batcher.stats.summary()}
+
+
+class _TimedLosses(list):
+    """A ``losses`` list for ``train_tagger`` that stamps each append: the
+    trainer appends after reading the step's loss, so consecutive stamps are
+    whole steps, synchronised."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def append(self, x):
+        self.stamps.append(time.perf_counter())
+        super().append(x)
+
+
+def break_tagger_phase(card: str, seed: int, bdd_json: str, device="cuda") -> dict:
+    """Phase 20 of the module docstring."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models.bert import BertConfig, BreakTagger, SentenceEncoder
+    from prosody_control_french_tts_tpu_torch.models.bilstm import BiLSTMConfig, BiLSTMProsody
+    from prosody_control_french_tts_tpu_torch.models.break_trainer import sentences_per_second, train_tagger
+    from prosody_control_french_tts_tpu_torch.models.datasets import BreakTagDataset
+    from prosody_control_french_tts_tpu_torch.models.experiment import run_bilstm_experiment, run_break_experiment
+    from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from prosody_control_french_tts_tpu_torch.serving.predictor import SSMLPredictor
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    texts = [" ".join(rng.choice(BERT_WORDS, size=int(rng.integers(6, 14)))) for _ in range(SERVE_CLIENTS * SERVE_PER_CLIENT)]
+    tok = WordPieceTokenizer.train([" ".join(BERT_WORDS)], vocab_size=512, min_freq=1)
+    cfg = BertConfig(vocab_size=max(len(tok), 512))
+    flops = bert_flops_per_sentence(cfg)
+    out = {}
+
+    # (a) the card against the plain CPU path, 8 sentences as the predictor pads them
+    state = BreakTagger(cfg, seed=seed, device="cpu").state_dict()
+    enc_state = SentenceEncoder(cfg, seed=seed + 1, device="cpu").state_dict()
+    ids, mask, widx = encode_texts(tok, texts[:8], cfg.max_len)
+    res = []
+    for where in ("cpu", device):
+        tagger = BreakTagger(cfg, seed=None, device=where).eval()
+        tagger.load_state_dict(state)
+        enc = SentenceEncoder(cfg, seed=None, device=where).eval()
+        enc.load_state_dict(enc_state)
+        with torch.inference_mode():
+            i_d, m_d = torch.from_numpy(ids).to(where), torch.from_numpy(mask).to(where)
+            res.append((tagger(i_d, m_d).cpu().numpy(), enc(i_d, m_d).cpu().numpy()))
+    card_tagger = tagger
+    (want, emb_cpu), (got, emb_card) = res
+    if not (np.isfinite(got).all() and np.isfinite(emb_card).all()):
+        raise SystemExit("break tagger: non-finite outputs on the card")
+    words = widx >= 0
+    err = float(np.abs(got - want)[mask].max())
+    agree = (got.argmax(-1) == want.argmax(-1))[words]
+    margin = np.abs(want[..., 1] - want[..., 0])[words]
+    cos = float(((emb_card * emb_cpu).sum(-1) / np.linalg.norm(emb_card, axis=-1) / np.linalg.norm(emb_cpu, axis=-1)).min())
+    print(f"break tagger card vs CPU (hidden {cfg.hidden}, {cfg.layers} layers, {cfg.heads} heads, ffn {cfg.ffn}, vocab "
+          f"{cfg.vocab_size}; 8 sentences at L {cfg.max_len}): max |logit diff| "
+          f"{err:.4e}, BREAK decisions agree on {agree.mean():.4f} of {words.sum()} words (smallest CPU margin where "
+          f"they differ: {float(margin[~agree].min()) if (~agree).any() else None}); sentence encoder min cosine {cos:.6f}; "
+          f"card={card}")
+    if (~agree & (margin > BERT_MARGIN)).any() or cos < 0.999:
+        raise SystemExit(f"break tagger: card and CPU disagree where the CPU margin exceeds {BERT_MARGIN}, or the "
+                         f"encoder's cosine {cos} is below 0.999")
+    out["card_vs_cpu"] = {"max_abs_logit_diff": err, "decisions_agree": float(agree.mean()), "encoder_min_cos": cos}
+
+    # (b) batched inference at bench.py's geometry
+    ds = BreakTagDataset(rng.integers(5, cfg.vocab_size, size=(BERT_BATCH, cfg.max_len)).astype(np.int32),
+                         np.ones((BERT_BATCH, cfg.max_len), bool), np.zeros((BERT_BATCH, cfg.max_len), np.int32))
+    rate = sentences_per_second(card_tagger, None, ds, batch_size=BERT_BATCH, iters=BERT_ITERS, device=device)
+    i_d, m_d = torch.as_tensor(ds.ids, device=dev), torch.as_tensor(ds.mask, device=dev)
+
+    def forward():
+        with torch.inference_mode():
+            return card_tagger(i_d, m_d)
+
+    ms_batch = cuda_ms(forward, reps=20, warmup=2)
+    wall_ms, by_name = profile_device(lambda: [forward() for _ in range(10)])
+    busy = sum(t for t, _ in by_name.values()) / wall_ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    bound_ms = BERT_BATCH * flops / PEAK_FLOPS["bf16"] * 1e3
+    share = rate * flops / PEAK_FLOPS["bf16"]
+    print(f"break tagger batched inference (B {BERT_BATCH}, L {cfg.max_len}, {BERT_ITERS} forwards, one sync): "
+          f"{rate:.1f} sentences/s ({share:.4f} of the {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s dense bf16 peak at "
+          f"{flops / 1e9:.3f} GFLOP a sentence, bench.py's count; bound {bound_ms:.3f} ms a batch, "
+          f"{PEAK_FLOPS['bf16'] / flops:.0f} sentences/s); {ms_batch:.3f} ms a batch by CUDA events; device busy "
+          f"{busy:.4f} over 10 forwards (torch.profiler, {wall_ms / 10:.3f} ms wall each); card={card}")
+    print("break tagger forward, device ms over 10 forwards by kernel (top 6): "
+          + json.dumps({k[:60]: [round(v[0], 3), v[1]] for k, v in top}))
+    out["batched"] = {"sentences_per_s": rate, "ms_per_batch": ms_batch, "device_busy": busy, "bf16_peak_share": share,
+                      "bound_ms": bound_ms}
+
+    # (c) the HTTP service, batched and unbatched
+    for label, max_batch, wait_ms in (("batched", 64, 4.0), ("unbatched", 1, 0.0)):
+        svc = SSMLPredictor(tok, cfg, state, device=device, max_batch=max_batch, max_wait_ms=wait_ms)
+        try:
+            r = serve_load(svc, texts, SERVE_CLIENTS, SERVE_PER_CLIENT)
+        finally:
+            svc.close()
+        print(f"break tagger HTTP serving {label} (max_batch {max_batch}, {wait_ms} ms; {SERVE_CLIENTS} clients x "
+              f"{SERVE_PER_CLIENT} sentences): {r['sentences_per_s']:.1f} sentences/s, p50 {r['p50_ms']:.2f} ms, "
+              f"p99 {r['p99_ms']:.2f} ms; batcher " + json.dumps({k: v for k, v in r.items() if k not in
+                                                                  ("sentences_per_s", "p50_ms", "p99_ms")})
+              + f"; card={card}")
+        out[f"serving_{label}"] = r
+
+    # (d) the prosody head
+    prosody = {"encoder_state": enc_state, "mu": [0.5, -1.0, 2.0], "sd": [3.0, 4.0, 5.0],
+               "bilstm_state": BiLSTMProsody(BiLSTMConfig(embed_dim=cfg.hidden), seed=seed + 2, device="cpu").state_dict()}
+    svc = SSMLPredictor(tok, cfg, state, device=device, max_batch=8, max_wait_ms=2.0, prosody=prosody)
+    try:
+        r = serve_load(svc, texts[:64], 8, 8)
+        samples = [svc.predict(t) for t in texts[:8]]
+    finally:
+        svc.close()
+    for sample in samples:
+        if not SSML_TAG.search(sample["ssml"]) or "prosody" not in sample:
+            raise SystemExit(f"break tagger: the prosody head's SSML carries no <prosody pitch/rate/volume>: {sample['ssml']}")
+    sample = samples[0]
+    print(f"break tagger with the prosody head: 64 requests, {r['sentences_per_s']:.1f} sentences/s, p50 "
+          f"{r['p50_ms']:.2f} ms; 8 predictions, each with <prosody pitch/rate/volume>, e.g. "
+          f"{json.dumps(sample['prosody'])} {sample['ssml'][:160]}...")
+
+    # (e) the experiment drivers on the multi-voice run's bdd.json, and the trainer at bert-base width
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        bdd_path = tmp / "bdd.json"
+        bdd_path.write_text(bdd_json, encoding="utf-8")
+        t0 = time.perf_counter()
+        rep = run_break_experiment(bdd_path, tmp / "break", runs=2, epochs=2, tiny=True, device=device)
+        t_break = time.perf_counter() - t0
+        if not (tmp / "break" / "break_tagger.npz").exists() or not np.isfinite(rep["perplexity"]["mean"]):
+            raise SystemExit(f"run_break_experiment: {rep}")
+        t0 = time.perf_counter()
+        reps = run_bilstm_experiment(bdd_path, tmp / "bilstm", seq_lens=(1,), epochs=2, device=device)
+        t_bilstm = time.perf_counter() - t0
+        if len(reps) != 1 or not np.isfinite(reps[0]["z_mse"]):
+            raise SystemExit(f"run_bilstm_experiment: {reps}")
+    print(f"run_break_experiment (tiny, 2 runs, 2 epochs) {t_break:.2f} s: F1 {rep['f1']['mean']:.3f}, accuracy "
+          f"{rep['accuracy']['mean']:.3f}, perplexity {rep['perplexity']['mean']:.3f}, tiny tagger "
+          f"{rep['sentences_per_second']:.1f} sentences/s; run_bilstm_experiment (seq_len 1, 2 epochs) {t_bilstm:.2f} s: "
+          f"z MSE {reps[0]['z_mse']:.4f}, n_train {reps[0]['n_train']}; card={card}")
+    n_steps = 10
+    ids_t = rng.integers(5, cfg.vocab_size, size=(TRAIN_B * n_steps, cfg.max_len)).astype(np.int32)
+    labels_t = rng.integers(0, 2, size=ids_t.shape).astype(np.int32)
+    losses = _TimedLosses()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_tagger(BreakTagDataset(ids_t, np.ones(ids_t.shape, bool), labels_t), cfg, epochs=1, batch_size=TRAIN_B,
+                 seed=seed, device=device, losses=losses)
+    t_train = time.perf_counter() - t0
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        raise SystemExit(f"train_tagger at bert-base: losses {list(losses)}")
+    step_ms = float(np.diff(losses.stamps).mean() * 1e3)
+    print(f"train_tagger (hidden {cfg.hidden}, {cfg.layers} layers; B {TRAIN_B}, L {cfg.max_len}, AdamW, dropout 0.1): "
+          f"{n_steps} steps, {step_ms:.2f} ms a step (steps 2-{n_steps}), {t_train:.2f} s with the model's set-up; losses "
+          f"{[round(x, 4) for x in losses]}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"card={card}")
+    out["train_step_ms"] = step_ms
+    print(f"break tagger phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3039,6 +3330,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp2:
         ap = aligner_pipeline_phase(Path(tmp2), args.seed, card)
     rows_out.append(ctc_kernel_row(ctc["calls"] + ap["ctc"]["calls"], ap["ctc"]["counts"]["ctc_viterbi"], card, lib))
+
+    # -- 20. the break-predictor serving path ---------------------------------
+    break_tagger_phase(card, args.seed, mv["bdd_json"])
 
     print(f"measure step (warm): wall {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s; card={card}")
     print("phases warm: " + json.dumps({k2: round(v, 4) for k2, v in sorted(warm_phases.items())}))

@@ -14,8 +14,10 @@ is copied and none is transposed; a leaf the port does not know raises.
 
 The packaged checkpoints cross as ``.npz`` → ``state_dict`` converters:
 ``masknet_params_from_jax`` for the separator, ``ctc_params_from_jax`` and
-``whisper_params_from_jax`` for the acoustic aligners; a later slice adds
-the break tagger's. The aligners' flax layouts become the port's: a Conv
+``whisper_params_from_jax`` for the acoustic aligners,
+``bert_params_from_jax`` and ``bilstm_params_from_jax`` for the break and
+prosody predictors (``bert_params_to_jax`` is the way back: the flat
+``a/b/c``-keyed npz the JAX package's checkpoints use). The aligners' flax layouts become the port's: a Conv
 kernel ``[k, in, out]`` → ``[out, in, k]``, a DenseGeneral kernel
 ``[dim, heads, hd]`` → ``[dim, heads·hd]`` and ``[heads, hd, dim]`` →
 ``[heads·hd, dim]`` (its bias flattened likewise), Dense kernels stay
@@ -314,4 +316,134 @@ def whisper_params_from_jax(tree: dict) -> dict:
             conv, leaf_name = ("dense_out" if proj == "out" else "dense_in" if proj else "dense"), leaf
         path = [part] + ([f"blocks.{blk}"] if blk is not None else []) + [layer] + ([proj] if proj else []) + [leaf_name]
         _put(out, ".".join(path), key, _aligner_leaf(key, conv, leaf, val), who)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the break tagger / sentence encoder and the BiLSTM prosody regressor
+# ---------------------------------------------------------------------------
+
+_BERT_NAMES = (  # (flax path, port name, leaves, layout); {i} a layer, {leaf} a leaf
+    ("encoder/tok_emb/embedding", "encoder.tok_emb", (), "same"),
+    ("encoder/pos_emb/embedding", "encoder.pos_emb", (), "same"),
+    ("encoder/LayerNorm_0/{leaf}", "encoder.ln_f.{leaf}", ("scale", "bias"), "same"),
+    ("encoder/layer_{i}/LayerNorm_0/{leaf}", "encoder.layers.{i}.ln1.{leaf}", ("scale", "bias"), "same"),
+    ("encoder/layer_{i}/LayerNorm_1/{leaf}", "encoder.layers.{i}.ln2.{leaf}", ("scale", "bias"), "same"),
+    ("encoder/layer_{i}/SelfAttention_0/qkv/{leaf}", "encoder.layers.{i}.attn.qkv.{leaf}", ("kernel", "bias"), "qkv"),
+    ("encoder/layer_{i}/SelfAttention_0/out/{leaf}", "encoder.layers.{i}.attn.out.{leaf}", ("kernel", "bias"), "out"),
+    ("encoder/layer_{i}/Dense_0/{leaf}", "encoder.layers.{i}.fc1.{leaf}", ("kernel", "bias"), "same"),
+    ("encoder/layer_{i}/Dense_1/{leaf}", "encoder.layers.{i}.fc2.{leaf}", ("kernel", "bias"), "same"),
+    ("classifier/{leaf}", "classifier.{leaf}", ("kernel", "bias"), "same"),
+)
+
+
+def _name_rx(template: str, leaves) -> re.Pattern:
+    rx = re.escape(template).replace(r"\{i\}", r"(?P<i>\d+)").replace(r"\{leaf\}", "(?P<leaf>%s)" % "|".join(leaves))
+    return re.compile(rx + "$")
+
+
+_BERT_FROM = [(_name_rx(j, lv), p, kind) for j, p, lv, kind in _BERT_NAMES]
+_BERT_TO = [(_name_rx(p, lv), j, kind) for j, p, lv, kind in _BERT_NAMES]
+
+
+def _rename(key: str, table, who: str):
+    for rx, template, kind in table:
+        m = rx.match(key)
+        if m:
+            return template.format(**m.groupdict()), kind, m.groupdict().get("leaf")
+    raise ValueError(f"{who}: unknown leaf {key!r}")
+
+
+def bert_params_from_jax(tree: dict) -> dict:
+    """Flax ``BreakTagger`` or ``SentenceEncoder`` tree of numpy arrays (with
+    or without the outer ``params``) → the ``state_dict`` of this port's
+    ``models.bert`` module of the same name (float32). The DenseGeneral
+    kernels ``qkv [dim, 3, heads, hd]`` and ``out [heads, hd, dim]`` become
+    ``[dim, 3·heads·hd]`` and ``[heads·hd, dim]`` (the qkv bias flattened
+    likewise); every other leaf keeps its layout (Dense kernels are
+    ``[in, out]`` on both sides). An unknown or repeated leaf raises; a
+    missing one fails ``load_state_dict``."""
+    who = "bert_params_from_jax"
+    out = {}
+    for key, val in _flatten(tree["params"] if "params" in tree else tree).items():
+        name, kind, leaf = _rename(key, _BERT_FROM, who)
+        v = np.array(val, np.float32)
+        if kind == "qkv":
+            v = v.reshape(v.shape[0], -1) if leaf == "kernel" else v.reshape(-1)
+        elif kind == "out" and leaf == "kernel":
+            v = v.reshape(-1, v.shape[-1])
+        _put(out, name, key, torch.from_numpy(np.ascontiguousarray(v)), who)
+    return out
+
+
+def bert_params_to_jax(state: dict, cfg) -> dict:
+    """The inverse of ``bert_params_from_jax``: a port ``BreakTagger`` /
+    ``SentenceEncoder`` ``state_dict`` → the flat ``{"params/a/b/c": float32
+    array}`` dict that ``np.savez`` writes as the JAX package's checkpoints
+    are written (``align/ctc_aligner.py:save_params``, read back by its
+    ``load_params``). ``cfg`` gives the heads of the DenseGeneral layouts."""
+    who = "bert_params_to_jax"
+    hd = cfg.hidden // cfg.heads
+    out = {}
+    for key, val in state.items():
+        name, kind, leaf = _rename(key, _BERT_TO, who)
+        v = val.detach().to("cpu", torch.float32).numpy()
+        if kind == "qkv":
+            v = v.reshape(v.shape[0], 3, cfg.heads, hd) if leaf == "kernel" else v.reshape(3, cfg.heads, hd)
+        elif kind == "out" and leaf == "kernel":
+            v = v.reshape(cfg.heads, hd, v.shape[-1])
+        if "params/" + name in out:
+            raise ValueError(f"{who}: {key!r} maps onto {name!r} twice")
+        out["params/" + name] = np.ascontiguousarray(v)
+    return out
+
+
+_LSTM_GATES = "ifgo"  # flax's OptimizedLSTMCell and nn.LSTM stack the gates in this order
+_BILSTM_LEAF = re.compile(r"(fwd|bwd)/cell/(i|h)([ifgo])/(kernel|bias)$|(LayerNorm_0|Dense_0|Dense_1)/(scale|bias|kernel)$")
+
+
+def bilstm_params_from_jax(tree: dict) -> dict:
+    """Flax ``BiLSTMProsody`` tree of numpy arrays (with or without the outer
+    ``params``) → the ``state_dict`` of this port's ``BiLSTMProsody``. The
+    cell's per-gate leaves ``{fwd,bwd}/cell/{ii,if,ig,io}/kernel [in, H]``
+    (no bias) and ``{hi,hf,hg,ho}/{kernel [H, H], bias}`` become
+    ``nn.LSTM``'s ``weight_ih_l0[_reverse] [4H, in]``,
+    ``weight_hh_l0[_reverse] [4H, H]`` and ``bias_hh_l0[_reverse]``, with
+    ``bias_ih`` zero; ``LayerNorm_0`` → ``norm``, ``Dense_0`` / ``Dense_1``
+    (kernels ``[in, out]``) → the ``nn.Linear`` layers ``dense`` / ``out``.
+    An unknown, repeated or missing leaf raises."""
+    who = "bilstm_params_from_jax"
+    flat = _flatten(tree["params"] if "params" in tree else tree)
+    gates: dict = {}
+    out = {}
+    for key, val in flat.items():
+        m = _BILSTM_LEAF.match(key)
+        bad_leaf = m is not None and (m.group(4) == "bias" and m.group(2) == "i" or m.group(5) is not None and (
+            m.group(6) == ("kernel" if m.group(5) == "LayerNorm_0" else "scale")))
+        if m is None or bad_leaf:
+            raise ValueError(f"{who}: unknown leaf {key!r}")
+        v = torch.from_numpy(np.array(val, np.float32))
+        if m.group(1):
+            part = (m.group(1), m.group(2), m.group(4))
+            if (part, m.group(3)) in gates:
+                raise ValueError(f"{who}: {key!r} twice")
+            gates[(part, m.group(3))] = v
+        else:
+            layer = {"LayerNorm_0": "norm", "Dense_0": "dense", "Dense_1": "out"}[m.group(5)]
+            leaf = m.group(6)
+            if layer != "norm":
+                leaf, v = ("weight", v.T.contiguous()) if leaf == "kernel" else ("bias", v)
+            _put(out, f"{layer}.{leaf}", key, v, who)
+    for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+        for src, leaf, dst in (("i", "kernel", "weight_ih"), ("h", "kernel", "weight_hh"), ("h", "bias", "bias_hh")):
+            parts = [gates.pop(((direction, src, leaf), g), None) for g in _LSTM_GATES]
+            if any(p is None for p in parts):
+                raise ValueError(f"{who}: {direction}/cell lacks a {src}* {leaf}")
+            out[f"lstm.{dst}_l0{sfx}"] = torch.cat([p.T if leaf == "kernel" else p for p in parts]).contiguous()
+        out[f"lstm.bias_ih_l0{sfx}"] = torch.zeros_like(out[f"lstm.bias_hh_l0{sfx}"])
+    if gates:
+        raise ValueError(f"{who}: unknown leaves {sorted(gates)}")
+    want = {"norm.scale", "norm.bias", "dense.weight", "dense.bias", "out.weight", "out.bias"}
+    if not want <= set(out):
+        raise ValueError(f"{who}: missing {sorted(want - set(out))}")
     return out

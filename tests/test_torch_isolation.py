@@ -29,7 +29,9 @@ def test_importing_every_module_loads_no_jax():
                  "core.pipeline", "core.config", "align.energy", "tts.fake", "ssml.parse", "eval.breaks",
                  "ops.stft", "ops.mask_ema", "audio.denoise", "audio.separate", "audio.merge", "core.batch_runner",
                  "core.synchronized", "tts.batch", "align.whisper", "align.ctc", "align.ctc_aligner", "ops.dtw",
-                 "ops.ctc_viterbi", "align.lexicon_decode", "align.synth_speech", "models.bpe_tokenizer"):
+                 "ops.ctc_viterbi", "align.lexicon_decode", "align.synth_speech", "models.bpe_tokenizer",
+                 "models.bert", "models.bilstm", "models.datasets", "models.break_trainer", "models.bilstm_runner",
+                 "models.fewshot", "models.experiment", "models.report_html", "serving.batcher", "serving.predictor"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -220,3 +222,53 @@ def test_acoustic_aligners_default_to_cuda():
     assert states.device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         ctc_viterbi.ctc_forced_align(torch.zeros((3, 4), device="meta"), torch.tensor([1]), 3, 1)
+
+
+def test_break_predictor_entry_points_default_to_cuda():
+    """The break-predictor slice: the models, the predictor, the trainers, the
+    throughput metric, the sentence embedder and the few-shot LLM client
+    default to CUDA and raise without a card; asked for the CPU, they run."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.models import bert, bilstm, break_trainer, bilstm_runner, fewshot, llm
+    from prosody_control_french_tts_tpu_torch.models.datasets import BreakTagDataset
+    from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from prosody_control_french_tts_tpu_torch.serving.predictor import SSMLPredictor
+
+    tok = WordPieceTokenizer.train(["le chat dort", "le chien dort"], vocab_size=60, min_freq=1)
+    cfg = bert.BertConfig(vocab_size=len(tok), hidden=16, layers=1, heads=2, ffn=32, max_len=8)
+    ids = np.full((2, 8), tok.pad_id, np.int32)
+    ids[:, :3] = tok.encode("le chat dort")[:3]
+    ds = BreakTagDataset(ids, ids != tok.pad_id, np.zeros((2, 8), np.int32))
+    for cls in (bert.BreakTagger, bert.SentenceEncoder):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bilstm.BiLSTMProsody(bilstm.BiLSTMConfig(embed_dim=16))
+    tagger = bert.BreakTagger(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SSMLPredictor(tok, cfg, tagger.state_dict())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        break_trainer.train_tagger(ds, cfg, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        break_trainer.sentences_per_second(tagger, None, ds, batch_size=2, iters=1)
+    xs, ys = np.zeros((4, 2, 16), np.float32), np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bilstm.train_bilstm(xs, ys, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bilstm_runner.embed_sentences(["le chat dort"], tok, cfg)
+    model = llm.DecoderLM(llm.LLMConfig.tiny(len(tok)), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fewshot.LocalLLMClient(model, tok)
+    predictor = SSMLPredictor(tok, cfg, tagger.state_dict(), device="cpu")
+    try:
+        assert predictor.predict("le chat dort")["words"] == ["le", "chat", "dort"]
+    finally:
+        assert predictor.close()
+    assert break_trainer.train_tagger(ds, cfg, epochs=1, device="cpu")[1].keys() == tagger.state_dict().keys()
+    assert break_trainer.sentences_per_second(tagger, None, ds, batch_size=2, iters=1, device="cpu") > 0
+    assert len(bilstm.train_bilstm(xs, ys, epochs=1, device="cpu")[1]) == 1
+    assert bilstm_runner.embed_sentences(["le chat dort"], tok, cfg, device="cpu").shape == (1, 16)
+    assert isinstance(fewshot.LocalLLMClient(model, tok, max_new=2, device="cpu").complete("le chat"), str)
