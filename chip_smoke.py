@@ -4,8 +4,9 @@ eight-step voice pipeline, the multi-voice pipeline with its denoisers, the
 standalone frame and cumsum kernels, the LLM
 serving path, the LLM training path (LoRA fine-tuning, at L 512 with
 kernel G and at L 1024 / 768 with the flash attention), the acoustic
-aligners (Whisper, CTC) alone and in the eight-step pipeline, and the break
-predictors' serving path (the BERT tagger behind the SSML HTTP service).
+aligners (Whisper, CTC) alone and in the eight-step pipeline, the break
+predictors' serving path (the BERT tagger behind the SSML HTTP service), and
+the contextual POS tagger with the evaluation layer.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -176,6 +177,32 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     ``run_bilstm_experiment`` (seq_len 1, 2 epochs) on the ``bdd.json`` that
     phase 15's Export JSON wrote; ten ``train_tagger`` steps at bert-base
     width (B 64): finite losses, ms a step. This path runs no hand kernel.
+    Then the sequence that once hung a serving turn (a batched predictor
+    closed, then an unbatched one built and served) twice more, each
+    predictor capturing its row buckets' CUDA graphs when it is built.
+
+21. (run right after phase 15) the contextual POS tagger and the evaluation
+    layer: the packaged tagger (``ContextualTagger(device="cuda")``, d_model
+    96, 2 layers) tags the JAX suite's 800 held-out silver sentences on the
+    card and on the CPU (tags equal wherever the CPU's top-2 margin is at
+    least 1e-3; the JAX suite's accuracy gates), with ``tag_tokens``'
+    sentences/s; ``train_pos_tagger`` at the JAX CLI's settings (16,000
+    sentences, 900 steps, B 256): finite, falling losses, ms a step, the
+    retrained tagger through the same gates, its checkpoint saved and
+    loaded back with equal tags; the eight steps with ``pos_backend:
+    contextual`` on a brute recording like phase 4's (10 segments, 159.5 s)
+    whose transcripts are made of ambiguous forms, cold and warm (A and B
+    once each, every artifact), beside a lexicon run on the same recording
+    (the pauses and commas each keeps that the other drops), and a 2-segment
+    contextual voice on the card and the CPU; ``evaluate_all`` over phase
+    15's four voices and this voice (no voice in error; F0 RMSE, break F1,
+    WER; the DTW's cost matrices and peak memory), one voice against the
+    CPU; ``extract_features`` over phase 15's 40 segments (A and B once per
+    wav); YIN against the Boersma tracker on one segment; and
+    ``corpus_agreement_report`` on three synthetic clips (``ctc_viterbi``
+    once per clip, every summary field filled). Every A and B call of the
+    contextual warm run, ``extract_features`` (75 Hz floor, 591 lags) and
+    the Boersma contour (60 Hz, 738 lags) is held against its plain version.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fourteen entries (mask_ema and ctc_viterbi,
@@ -478,8 +505,8 @@ def print_ptxas_report(procs, lib) -> None:
 
     g = pitch._geometry(1 << 20, 44100.0, pitch.PitchParams())
     report = ptxas_rows(texts["pitch_candidates.cu"], r"(pitch_candidates_kernel)ILi(\d+)E")
-    if len(report) != 16:
-        raise SystemExit(f"{len(report)} of the 16 kernels of A in the ptxas report:\n{texts['pitch_candidates.cu'][-2000:]}")
+    if len(report) != 32:
+        raise SystemExit(f"{len(report)} of the 32 kernels of A in the ptxas report:\n{texts['pitch_candidates.cu'][-2000:]}")
     for row in report.values():
         row["dynamic_smem"] = lib.pitch_candidates_smem_bytes(g["min_lag"], g["max_lag"])
         row["blocks_per_sm"] = blocks_per_sm(row["registers"], 256, row["dynamic_smem"])
@@ -566,13 +593,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 class Capture:
     """Wrap a module function to keep the arguments of its calls (the last
-    ``keep`` of them, or all) and their results (``results``, likewise), and
-    count them (``count``)."""
+    ``keep`` of them, or all) and their results (``results``, likewise, or
+    none with ``results=False``, so that a large result is freed when its
+    caller drops it), and count them (``count``)."""
 
-    def __init__(self, module, name, keep=None):
+    def __init__(self, module, name, keep=None, results=True):
         self.module, self.name, self.orig = module, name, getattr(module, name)
         self.calls = collections.deque(maxlen=keep)
-        self.results = collections.deque(maxlen=keep)
+        self.results = collections.deque(maxlen=keep if results else 0)
         self.count = 0
 
     def __enter__(self):
@@ -588,6 +616,26 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class Timed(Capture):
+    """Capture that sums the wall seconds of its calls (``seconds``); the
+    wrapped function must end its own device work."""
+
+    def __enter__(self):
+        self.seconds = 0.0
+        super().__enter__()
+        inner = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        setattr(self.module, self.name, timed)
+        return self
 
 
 class GradCapture(Capture):
@@ -713,13 +761,13 @@ def build_brute_voice(base: Path, name: str, seed: int, n_segments: int, seconds
     return texts, x.size / a.rate
 
 
-def pipeline_config(base: Path, name: str):
+def pipeline_config(base: Path, name: str, pos_backend: str = "lexicon"):
     from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
 
     return PipelineConfig.from_dict({
         "data_dir": "Data/voice", "out_dir": "Out", "voice_names": [name], "azure_voice_name": "fr-FR-DeniseNeural",
         "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300},
-        "tts_backend": "fake", "aligner": "energy",
+        "tts_backend": "fake", "aligner": "energy", "pos_backend": pos_backend,
     }, base)
 
 
@@ -734,13 +782,13 @@ def run_steps(pipe, steps) -> tuple:
     return timer.records, time.perf_counter() - t0
 
 
-def drive_voice(base: Path, name: str, texts, device) -> tuple:
+def drive_voice(base: Path, name: str, texts, device, pos_backend: str = "lexicon") -> tuple:
     """Preprocess, the transcripts, then the other seven steps → (pipeline,
     step records, wall seconds)."""
     from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
     from prosody_control_french_tts_tpu_torch.prosody.measure import segment_sort_key
 
-    pipe = AudioPipeline(name, pipeline_config(base, name), device=device)
+    pipe = AudioPipeline(name, pipeline_config(base, name, pos_backend), device=device)
     pre, pre_s = run_steps(pipe, ["Preprocess"])
     segs = sorted((pipe.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
     if len(segs) != len(texts):
@@ -843,6 +891,36 @@ def per_step(records) -> dict:
     return {r["step"]: r["seconds"] for r in records}
 
 
+def small_voice_card_vs_cpu(small: Path, seed: int, dev, label: str, pos_backend: str = "lexicon",
+                            transcripts=None) -> None:
+    """A 2-segment brute voice (3-5 s segments) through the eight steps on the
+    card and on the CPU: equal silence ranges, TextGrids and segment /
+    syntagme / pause columns, adjustments within 0.05 points. ``transcripts``
+    (optional) rewrites the synth word lists before the run."""
+    texts2, small_s = build_brute_voice(small / "card", "small", seed, 2, seconds=(3.0, 5.0))
+    build_brute_voice(small / "cpu", "small", seed, 2, seconds=(3.0, 5.0))
+    if transcripts is not None:
+        texts2 = transcripts(texts2)
+    p_card, _, _ = drive_voice(small / "card", "small", texts2, dev, pos_backend)
+    p_cpu, _, _ = drive_voice(small / "cpu", "small", texts2, "cpu", pos_backend)
+    if p_card.last_split != p_cpu.last_split:
+        raise SystemExit(f"{label}: silence ranges card {p_card.last_split} != CPU {p_cpu.last_split}")
+    for tg in sorted(p_cpu.textgrid_dir.glob("*.TextGrid")):
+        if (p_card.textgrid_dir / tg.name).read_bytes() != tg.read_bytes():
+            raise SystemExit(f"{label}: TextGrid {tg.name} differs between card and CPU")
+    cols = lambda p: [(r["segment"], r["syntagme"], r["pause"]) for r in read_csv(p.bdd_syntagme_ssml_csv)]  # noqa: E731
+    if cols(p_card) != cols(p_cpu):
+        raise SystemExit(f"{label}: segment / syntagme / pause columns differ between card and CPU")
+    adj_err = max(max(abs(a.pitch_smooth - b.pitch_smooth), abs(a.rate_smooth - b.rate_smooth), abs(a.raw_volume - b.raw_volume))
+                  for a, b in zip(p_card.last_measure.rows, p_cpu.last_measure.rows))
+    if adj_err > 0.05:
+        raise SystemExit(f"{label}: card vs CPU adjustments differ by {adj_err} points")
+    same_csv = p_card.bdd_syntagme_ssml_csv.read_bytes() == p_cpu.bdd_syntagme_ssml_csv.read_bytes()
+    same_out = (p_card.results_dir / "OUT.TextGrid").read_bytes() == (p_cpu.results_dir / "OUT.TextGrid").read_bytes()
+    print(f"{label} ({small_s:.1f} s, 2 segments) card vs CPU: ranges, TextGrids and segment/syntagme/pause columns equal; "
+          f"adjustments max |diff| {adj_err:.2e} points; BDD_syntagme_ssml.csv byte-equal {same_csv}; OUT.TextGrid byte-equal {same_out}")
+
+
 def pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> dict:
     """Phase 4 of the module docstring. Returns the kernel counts of the warm
     run."""
@@ -879,27 +957,7 @@ def pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> dict:
     trace = profile_measure(lambda: pipe.run())
 
     # card against CPU on a 2-segment voice
-    small = tmp / "pipeline_small"
-    texts2, small_s = build_brute_voice(small / "card", "small", seed + 1, 2, seconds=(3.0, 5.0))
-    build_brute_voice(small / "cpu", "small", seed + 1, 2, seconds=(3.0, 5.0))
-    p_card, _, _ = drive_voice(small / "card", "small", texts2, dev)
-    p_cpu, _, _ = drive_voice(small / "cpu", "small", texts2, "cpu")
-    if p_card.last_split != p_cpu.last_split:
-        raise SystemExit(f"small voice: silence ranges card {p_card.last_split} != CPU {p_cpu.last_split}")
-    for tg in sorted(p_cpu.textgrid_dir.glob("*.TextGrid")):
-        if (p_card.textgrid_dir / tg.name).read_bytes() != tg.read_bytes():
-            raise SystemExit(f"small voice: TextGrid {tg.name} differs between card and CPU")
-    cols = lambda p: [(r["segment"], r["syntagme"], r["pause"]) for r in read_csv(p.bdd_syntagme_ssml_csv)]  # noqa: E731
-    if cols(p_card) != cols(p_cpu):
-        raise SystemExit("small voice: segment / syntagme / pause columns differ between card and CPU")
-    adj_err = max(max(abs(a.pitch_smooth - b.pitch_smooth), abs(a.rate_smooth - b.rate_smooth), abs(a.raw_volume - b.raw_volume))
-                  for a, b in zip(p_card.last_measure.rows, p_cpu.last_measure.rows))
-    if adj_err > 0.05:
-        raise SystemExit(f"small voice: card vs CPU adjustments differ by {adj_err} points")
-    same_csv = p_card.bdd_syntagme_ssml_csv.read_bytes() == p_cpu.bdd_syntagme_ssml_csv.read_bytes()
-    same_out = (p_card.results_dir / "OUT.TextGrid").read_bytes() == (p_cpu.results_dir / "OUT.TextGrid").read_bytes()
-    print(f"pipeline small voice ({small_s:.1f} s, 2 segments) card vs CPU: ranges, TextGrids and segment/syntagme/pause columns equal; "
-          f"adjustments max |diff| {adj_err:.2e} points; BDD_syntagme_ssml.csv byte-equal {same_csv}; OUT.TextGrid byte-equal {same_out}")
+    small_voice_card_vs_cpu(tmp / "pipeline_small", seed + 1, dev, "pipeline small voice")
 
     print(f"pipeline eight steps (warm): {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s, "
           f"{audio_s / cold_s:.1f} audio-s/s; card={card}")
@@ -1204,7 +1262,8 @@ def multi_voice_phase(tmp: Path, card: str, b_s10_inputs, device="cuda") -> dict
                bound_ms=bound_ema, bound_by="bytes", library_ms=None, check="pass", chain_floor_ms=chain_ema,
                fixups=fixups, warmup_frames=mask_ema.WARMUP)
     return {"mask_ema": row, "launches": {"pitch_candidates": counts["pitch_candidates"], "viterbi": counts["viterbi"]},
-            "viterbi_s30_ms": ms_b30, "viterbi_s10_ms": ms_b10, "err_a": err_a, "err_b": err_b, "bdd_json": bdd_json}
+            "viterbi_s30_ms": ms_b30, "viterbi_s10_ms": ms_b10, "err_a": err_a, "err_b": err_b, "bdd_json": bdd_json,
+            "base": base}
 
 
 # ---------------------------------------------------------------------------
@@ -3085,6 +3144,21 @@ def break_tagger_phase(card: str, seed: int, bdd_json: str, device="cuda") -> di
                                                                   ("sentences_per_s", "p50_ms", "p99_ms")})
               + f"; card={card}")
         out[f"serving_{label}"] = r
+    # the sequence of the one hung turn (a batched predictor closed, then an
+    # unbatched one built and served), twice more in this process
+    seq = []
+    for _ in range(2):
+        for label, max_batch, wait_ms in (("batched", 64, 4.0), ("unbatched", 1, 0.0)):
+            svc = SSMLPredictor(tok, cfg, state, device=device, max_batch=max_batch, max_wait_ms=wait_ms)
+            try:
+                r = serve_load(svc, texts, SERVE_CLIENTS, SERVE_PER_CLIENT)
+            finally:
+                closed = svc.close()
+            if not closed:
+                raise SystemExit(f"break tagger serving ({label}): close() did not finish within its bound")
+            seq.append(f"{label} {r['sentences_per_s']:.1f}/s")
+    print(f"break tagger serving, batched then unbatched predictors built, served and closed twice more: "
+          f"{', '.join(seq)}; every turn ended and closed; card={card}")
 
     # (d) the prosody head
     prosody = {"encoder_state": enc_state, "mu": [0.5, -1.0, 2.0], "sd": [3.0, 4.0, 5.0],
@@ -3140,6 +3214,305 @@ def break_tagger_phase(card: str, seed: int, bdd_json: str, device="cuda") -> di
           f"card={card}")
     out["train_step_ms"] = step_ms
     print(f"break tagger phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the contextual POS tagger and the evaluation layer (phase 21)
+# ---------------------------------------------------------------------------
+
+POS_MARGIN = 1e-3  # card vs CPU: a tag may differ only where the CPU's top-2 logit margin is below this
+POS_GATES = {"token_acc": 0.88, "amb_acc": 0.95, "fb_acc": 0.98}  # the JAX suite's (tests/test_pos_tagger.py)
+POS_TRAIN = (16000, 900, 256)  # the JAX CLI's pretrain-pos: sentences (seed 0), steps, batch
+TOL_EVAL_F0 = 1e-4  # evaluate_voice card vs CPU: f0_rmse_log2
+# the forms whose reading the JAX suite grades as ambiguous
+POS_AMBIGUOUS = {"a", "son", "or", "car", "personne", "tout", "toute", "tous", "si", "soit", "avant", "apres", "après",
+                 "pendant", "devant", "vers", "entre", "bien", "ete", "été", "pas", "leur", "en", "le", "la", "les",
+                 "que", "comme", "est"}
+# transcripts for the contextual pipeline: phrases where the backends read a form differently
+POS_PHRASES = ("le son de la voix", "il a mangé le gâteau", "le car arrive", "cette personne parle", "or il pleut",
+               "tout le monde chante", "si tu viens", "son violon sonne", "il reste car il pleut", "personne ne répond",
+               "il va a paris", "le chemin est si long", "leur maison est grande", "il leur parle")
+
+
+def ambiguous_transcripts(texts: list[str]) -> list[str]:
+    """Each transcript's words replaced one for one by the words of
+    POS_PHRASES in turn, keeping the punctuation the synth words carried (so
+    the energy aligner sees as many words, and pauses fall where they did)."""
+    stream = " ".join(POS_PHRASES).split()
+    out, k = [], 0
+    for text in texts:
+        words = []
+        for w in text.split():
+            tail = w[len(w.rstrip(",.")):]
+            words.append(stream[k % len(stream)] + tail)
+            k += 1
+        out.append(" ".join(words))
+    return out
+
+
+def pos_accuracy(tags: list, sents) -> dict:
+    """The JAX suite's held-out statistics: token accuracy, accuracy on the
+    ambiguous forms, and the forbidden bit's accuracy beside the lexicon's."""
+    from prosody_control_french_tts_tpu_torch.models.pos_data import FORBIDDEN_TAGS
+    from prosody_control_french_tts_tpu_torch.utils import fr_pos
+
+    tot = ok = amb_tot = amb_ok = fb_ok = lex_ok = 0
+    for s, pred in zip(sents, tags):
+        for w, gold, p in zip(s.words, s.tags, pred):
+            tot += 1
+            ok += p == gold
+            amb_tot += w.lower() in POS_AMBIGUOUS
+            amb_ok += w.lower() in POS_AMBIGUOUS and p == gold
+            fb_ok += (p in FORBIDDEN_TAGS) == (gold in FORBIDDEN_TAGS)
+            lex_ok += fr_pos.is_function_word(w) == (gold in FORBIDDEN_TAGS)
+    return {"token_acc": ok / tot, "amb_acc": amb_ok / amb_tot, "fb_acc": fb_ok / tot, "lexicon_fb_acc": lex_ok / tot}
+
+
+def check_pos_gates(stats: dict, label: str) -> None:
+    if any(stats[k] <= v for k, v in POS_GATES.items()) or stats["fb_acc"] <= stats["lexicon_fb_acc"]:
+        raise SystemExit(f"{label}: held-out accuracy below the JAX suite's gates {POS_GATES}: {stats}")
+
+
+def pos_tagger_phase(tmp: Path, card: str, device="cuda") -> dict:
+    """Phase 21, parts 1 and 2: the packaged tagger and the trainer."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models.pos_data import generate_treebank
+    from prosody_control_french_tts_tpu_torch.models.pos_tagger import (ContextualTagger, load_tagger, save_tagger,
+                                                                        train_pos_tagger)
+
+    dev = torch.device(device)
+    held = generate_treebank(800, seed=99, holdout_fillers=True)
+    toks = [list(s.words) for s in held]
+    card_t, cpu_t = ContextualTagger(device=dev), ContextualTagger(device="cpu")
+    if max(map(len, toks)) > card_t.cfg.max_len:
+        raise SystemExit("pos tagger: a held-out sentence is longer than one window")
+    w, c, m = card_t.feat.encode_batch(toks)
+    got, want = card_t.logits(w, c, m).cpu().numpy(), cpu_t.logits(w, c, m).numpy()
+    live = m > 0
+    err = float(np.abs(got - want)[live].max())
+    top2 = np.sort(want, -1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    card_t._cache.clear()
+    sync(dev)
+    t0 = time.perf_counter()
+    card_tags = [card_t.tag_tokens(t) for t in toks]
+    tag_s = time.perf_counter() - t0
+    cpu_tags = [cpu_t.tag_tokens(t) for t in toks]
+    differ = [(i, j) for i, (a, b) in enumerate(zip(card_tags, cpu_tags)) for j in range(len(a)) if a[j] != b[j]]
+    if any(margin[i, j] >= POS_MARGIN for i, j in differ):
+        raise SystemExit(f"pos tagger: card and CPU tags differ where the CPU margin is at least {POS_MARGIN}: {differ[:5]}")
+    stats = pos_accuracy(card_tags, held)
+    check_pos_gates(stats, "pos tagger (packaged, card)")
+    distinct = len({tuple(t) for t in toks})
+    print(f"pos tagger (packaged, d_model {card_t.cfg.d_model}, {card_t.cfg.n_layers} layers) card vs CPU on {len(held)} "
+          f"held-out sentences: max |logit diff| {err:.3e}, {len(differ)} tags differ, {int((live & (margin < POS_MARGIN)).sum())} "
+          f"of {int(live.sum())} tokens under the {POS_MARGIN} CPU margin; held-out "
+          + json.dumps({k: round(v, 4) for k, v in stats.items()})
+          + f"; tag_tokens {len(toks) / tag_s:.1f} sentences/s ({len(toks)} calls, {distinct} distinct, one window a "
+          f"sentence, cache cleared first); card={card}")
+
+    n_sent, steps, batch = POS_TRAIN
+    sents = generate_treebank(n_sent, seed=0)
+    losses = _TimedLosses()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, feat, cfg = train_pos_tagger(sents, steps=steps, batch_size=batch, seed=0, log_every=0, device=dev,
+                                        losses=losses)
+    train_s = time.perf_counter() - t0
+    loss = np.asarray(losses)
+    if len(loss) != steps or not np.isfinite(loss).all() or not loss[-100:].mean() < 0.5 * loss[:100].mean():
+        raise SystemExit(f"train_pos_tagger: losses not finite and falling: first {loss[:5]}, last {loss[-5:]}")
+    step_ms = float(np.diff(losses.stamps).mean() * 1e3)
+    retrained = ContextualTagger(state, feat, cfg, device=dev)
+    re_tags = [retrained.tag_tokens(t) for t in toks]
+    re_stats = pos_accuracy(re_tags, held)
+    check_pos_gates(re_stats, "pos tagger (retrained on the card)")
+    path = tmp / "pos_retrained.npz"
+    save_tagger(state, feat, cfg, path)
+    loaded = ContextualTagger(*load_tagger(path), device=dev)
+    stored = ContextualTagger({k: v.half().float() for k, v in state.items()}, feat, cfg, device=dev)
+    lo_tags = [loaded.tag_tokens(t) for t in toks]
+    if lo_tags != [stored.tag_tokens(t) for t in toks]:
+        raise SystemExit("pos tagger: the reloaded checkpoint tags otherwise than the weights it stored")
+    moved = sum(a != b for x, y in zip(lo_tags, re_tags) for a, b in zip(x, y))
+    print(f"train_pos_tagger ({n_sent} sentences, {steps} steps, B {batch}, AdamW cosine 3e-3): {step_ms:.3f} ms a step "
+          f"(steps 2-{steps}, each read back), {train_s:.1f} s with set-up; loss {loss[0]:.4f} -> {loss[-1]:.4f} (mean of "
+          f"the first 100 {loss[:100].mean():.4f}, the last 100 {loss[-100:].mean():.4f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; retrained held-out "
+          + json.dumps({k: round(v, 4) for k, v in re_stats.items()})
+          + f"; saved and reloaded: tags equal to the float16 weights it stores ({moved} tokens of "
+          f"{sum(map(len, toks))} differ from the float32 ones); card={card}")
+    return {"sentences_per_s": len(toks) / tag_s, "logit_err": err, "stats": stats, "train_step_ms": step_ms,
+            "retrained": re_stats}
+
+
+def pauses_and_commas(pipe) -> dict:
+    """Per segment: pause rows and commas in the syntagme text of
+    BDD_syntagme_ssml.csv."""
+    out: dict = {}
+    for r in read_csv(pipe.bdd_syntagme_ssml_csv):
+        p, c = out.get(r["segment"], (0, 0))
+        out[r["segment"]] = (p + (not r["syntagme"].strip() and float(r["pause"]) > 0), c + r["syntagme"].count(","))
+    return out
+
+
+def contextual_pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> tuple:
+    """Phase 21, part 3. Returns (the voice's base directory, its name, the
+    warm run's audio-s/s, its device-busy share)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+
+    dev = torch.device(device)
+    name, base, lex_base = "ctx_voice", tmp / "pos_pipeline", tmp / "pos_pipeline_lexicon"
+    texts, audio_s = build_brute_voice(base, name, seed, FULL_SEGMENTS)
+    build_brute_voice(lex_base, name, seed, FULL_SEGMENTS)
+    texts = ambiguous_transcripts(texts)
+    pipe, cold, cold_s = drive_voice(base, name, texts, dev, "contextual")
+    reset_kernel_counts()
+    with Capture(candidates, "topk_parabolic") as cap_a, Capture(viterbi, "viterbi_path") as cap_b:
+        warm, warm_s = run_steps(pipe, None)
+    counts = kernel_counts()
+    if counts["pitch_candidates"] != 1 or counts["viterbi"] != 1 or counts["frames"] or counts["chunk_cumsum"] \
+            or counts["mask_ema"]:
+        raise SystemExit(f"contextual pipeline: A and B once each and no other kernel, got {counts}")
+    check_a_b(cap_a.calls, cap_b.calls, "contextual pipeline, warm run")
+    check_pipeline_artifacts(pipe, FULL_SEGMENTS)
+    trace = profile_measure(lambda: pipe.run())
+    lex, _, _ = drive_voice(lex_base, name, texts, dev, "lexicon")
+    ctx_pc, lex_pc = pauses_and_commas(pipe), pauses_and_commas(lex)
+    more = {k: sum(max(0, ctx_pc.get(s, (0, 0))[i] - lex_pc.get(s, (0, 0))[i]) for s in ctx_pc.keys() | lex_pc.keys())
+            for i, k in enumerate(("pauses", "commas"))}
+    fewer = {k: sum(max(0, lex_pc.get(s, (0, 0))[i] - ctx_pc.get(s, (0, 0))[i]) for s in ctx_pc.keys() | lex_pc.keys())
+             for i, k in enumerate(("pauses", "commas"))}
+    print(f"contextual pipeline ({FULL_SEGMENTS} segments, {audio_s:.1f} s, transcripts of ambiguous forms) warm run "
+          f"launches: {json.dumps(counts)}; against a lexicon run on the same recording and transcripts: the contextual "
+          f"backend keeps {json.dumps(more)} that the lexicon drops and drops {json.dumps(fewer)} that it keeps "
+          f"(pause rows and syntagme commas of BDD_syntagme_ssml.csv, per segment)")
+    small_voice_card_vs_cpu(tmp / "pos_pipeline_small", seed + 1, dev, "contextual pipeline small voice", "contextual",
+                            ambiguous_transcripts)
+    print(f"contextual pipeline eight steps (warm): {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s, device busy "
+          f"{trace['device_busy_share']:.4f} (torch.profiler, a third run); cold {cold_s:.3f} s, {audio_s / cold_s:.1f} "
+          f"audio-s/s; card={card}")
+    print("contextual pipeline steps warm (s): " + json.dumps(per_step(warm)))
+    print("contextual pipeline steps cold (s): " + json.dumps(per_step(cold)))
+    return base, name, audio_s / warm_s, trace["device_busy_share"]
+
+
+def eval_layer_phase(tmp: Path, card: str, mv_base: Path, ctx_base: Path, ctx_name: str, device="cuda") -> dict:
+    """Phase 21, part 4: the evaluation layer on the pipelines' outputs."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.align.synth_speech import sample_sentences, synth_sentence
+    from prosody_control_french_tts_tpu_torch.eval import corpus_compare, metrics, real_audio_agreement, yin
+    from prosody_control_french_tts_tpu_torch.eval.evaluate_voice import evaluate_all, evaluate_voice
+    from prosody_control_french_tts_tpu_torch.ops import candidates, ctc_viterbi, dtw, viterbi
+    from prosody_control_french_tts_tpu_torch.ops.pitch import PitchParams, praat_pitch
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio, read_wav, write_wav
+
+    dev = torch.device(device)
+    evaluated_s = 0.0
+    for b in (mv_base, ctx_base):
+        for v in (b / "Data" / "voice").iterdir():
+            if (b / "Out" / "results" / v.name).is_dir():
+                evaluated_s += min(120.0, sum(read_wav(p).duration_seconds for p in (v / "audio").glob("segment_ph*.wav")))
+    torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    t0 = time.perf_counter()
+    with (Capture(dtw, "_cost_matrix", results=False) as cap, Timed(metrics, "f0_contour") as t_yin,
+          Timed(metrics, "dtw_path") as t_dtw):
+        voices = {**evaluate_all(mv_base / "Out", mv_base / "Data" / "voice", device=dev)["voices"],
+                  **evaluate_all(ctx_base / "Out", ctx_base / "Data" / "voice", device=dev)["voices"]}
+    sync(dev)
+    eval_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shapes = [(int(a[0].shape[0]), int(a[1].shape[0])) for a, _ in cap.calls]
+    bad = {n: r for n, r in voices.items() if "error" in r or not {"f0_rmse_log2", "break", "wer"} <= set(r)}
+    n_voices = sum(1 for b in (mv_base, ctx_base) for v in (b / "Out" / "results").iterdir() if v.is_dir())
+    if len(voices) != n_voices or bad:
+        raise SystemExit(f"evaluate_all: {len(voices)} voices, failed or incomplete: {bad}")
+    cpu = evaluate_voice(ctx_base / "Out" / "results" / ctx_name, ctx_base / "Data" / "voice" / ctx_name, device="cpu")
+    card_r = voices[ctx_name]
+    f0_diff = abs(cpu["f0_rmse_log2"] - card_r["f0_rmse_log2"])
+    if cpu["break"] != card_r["break"] or cpu["wer"] != card_r["wer"] or f0_diff > TOL_EVAL_F0:
+        raise SystemExit(f"evaluate_voice {ctx_name}: card {card_r} vs CPU {cpu}")
+    print("evaluate_all (phase 15's four voices and the contextual voice; the first 120 s of each): "
+          + json.dumps({n: {"f0_rmse_log2": round(r["f0_rmse_log2"], 4), "break_f1": round(r["break"]["f1"], 4),
+                            "wer": round(r["wer"], 4)} for n, r in sorted(voices.items())})
+          + f"; no voice in error; {eval_s:.2f} s for {evaluated_s:.1f} s of natural audio ({eval_s / evaluated_s:.2e} s "
+          f"per audio-s; YIN contours on the host {t_yin.seconds:.2f} s, the DTW {t_dtw.seconds:.2f} s with its path's "
+          f"read-back and backtrack, the rest reading and merging wavs); DTW cost matrices {shapes}, peak device memory "
+          f"{peak / 2**20:.1f} MiB; {ctx_name} on the CPU: "
+          f"break F1 and WER equal, f0_rmse_log2 |diff| {f0_diff:.2e} (limit {TOL_EVAL_F0}); card={card}")
+
+    seg_dirs = [mv_base / "Data" / "voice" / name / "audio" for name, _, _ in MULTI_VOICES]
+    wavs = [p for d in seg_dirs for p in d.glob("*.wav")]
+    seg_s = sum(read_wav(p).duration_seconds for p in wavs)
+    reset_kernel_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    with Capture(candidates, "topk_parabolic") as cap_a, Capture(viterbi, "viterbi_path") as cap_b:
+        feats = [corpus_compare.extract_features(d, device=dev) for d in seg_dirs]
+        sync(dev)
+    feat_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    if counts["pitch_candidates"] != len(wavs) or counts["viterbi"] != len(wavs):
+        raise SystemExit(f"extract_features: A and B must launch once per wav ({len(wavs)}), got {counts}")
+    check_a_b(cap_a.calls, cap_b.calls, "extract_features, 75 Hz floor")
+    pitch = np.concatenate([f["pitch_mean"] for f in feats])
+    loud = np.concatenate([f["loudness_dbfs"] for f in feats])
+    if pitch.size != len(wavs) or not (pitch > 0).all() or not np.isfinite(loud).all():
+        raise SystemExit(f"extract_features: pitch {pitch}, loudness {loud}")
+    print(f"extract_features over phase 15's {len(wavs)} segments ({seg_s:.1f} s): A {counts['pitch_candidates']} and B "
+          f"{counts['viterbi']} launches, {feat_s:.3f} s ({feat_s / seg_s:.2e} s per audio-s); mean pitch "
+          f"{pitch.min():.1f}-{pitch.max():.1f} Hz, loudness {loud.min():.2f}-{loud.max():.2f} dBFS; card={card}")
+
+    seg = read_wav(wavs[0]).to_mono()
+    x = np.asarray(seg.samples, np.float32)
+    with Capture(candidates, "topk_parabolic") as cap_a, Capture(viterbi, "viterbi_path") as cap_b:
+        bf = metrics.f0_contour(x, seg.rate, method="boersma", device=dev)
+        bt = praat_pitch(x, seg.rate, PitchParams(floor=60.0, ceiling=600.0), device=dev).times
+    check_a_b(cap_a.calls, cap_b.calls, "f0_contour(method='boersma'), 60 Hz floor")
+    yf, yt = yin.yin_f0(x, seg.rate)
+    agree = yin.cross_method_agreement(yf, yt, bf, bt)
+    if "median_abs_cents" not in agree:
+        raise SystemExit(f"cross_method_agreement on {wavs[0].name}: no frame voiced by both: {agree}")
+    print(f"YIN against f0_contour(method='boersma') on {wavs[0].parent.parent.name}/{wavs[0].name} "
+          f"({seg.duration_seconds:.1f} s): " + json.dumps({k: round(v, 4) for k, v in agree.items()}))
+
+    clip_dir = tmp / "agreement_clips"
+    clip_dir.mkdir()
+    refs, clips = {}, []
+    for i, sent in enumerate(sample_sentences(8, seed=555_000)[:3]):
+        clips.append(clip_dir / f"clip{i}.wav")
+        write_wav(clips[-1], Audio(synth_sentence(sent, seed=555_000 + i)[0], 16000))
+        refs[f"clip{i}"] = sent
+    ctc_viterbi.launches = 0
+    t0 = time.perf_counter()
+    rep = real_audio_agreement.corpus_agreement_report(clips, refs, device=dev)
+    agree_s = time.perf_counter() - t0
+    empty = [k for k, v in rep["summary"].items() if v is None]
+    if ctc_viterbi.launches != len(clips) or empty:
+        raise SystemExit(f"corpus_agreement_report: ctc_viterbi {ctc_viterbi.launches} launches for {len(clips)} clips, "
+                         f"empty fields {empty}")
+    print(f"corpus_agreement_report on {len(clips)} synthetic clips (phase 16's held-out sentences, seed 555000): "
+          f"ctc_viterbi {ctc_viterbi.launches} launches, {agree_s:.2f} s; " + json.dumps(rep["summary"]) + f"; card={card}")
+    return {"eval_s_per_audio_s": eval_s / evaluated_s, "features_s_per_audio_s": feat_s / seg_s,
+            "dtw_shapes": shapes, "peak_mib": peak / 2**20}
+
+
+def pos_eval_phase(tmp: Path, seed: int, card: str, mv_base: Path, device="cuda") -> dict:
+    """Phase 21 of the module docstring."""
+    t0 = time.perf_counter()
+    out = pos_tagger_phase(tmp, card, device)
+    ctx_base, ctx_name, out["pipeline_audio_s_per_s"], out["pipeline_busy"] = contextual_pipeline_phase(
+        tmp, seed, card, device)
+    out.update(eval_layer_phase(tmp, card, mv_base, ctx_base, ctx_name, device))
+    print(f"pos tagger and evaluation phase: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3254,6 +3627,9 @@ def main() -> int:
 
         # -- 15. the multi-voice pipeline and its denoisers --------------------
         mv = multi_voice_phase(tmp, card, cap_b.calls[0][0])
+
+        # -- 21. the contextual POS tagger and the evaluation layer -------------
+        pos_eval_phase(tmp, args.seed, card, mv["base"])
 
         # -- 5. kernels C/D and E against their plain versions, and their times
         cde_rows = kernels_cde_phase(seg_files, card)

@@ -17,7 +17,9 @@ The packaged checkpoints cross as ``.npz`` → ``state_dict`` converters:
 ``whisper_params_from_jax`` for the acoustic aligners,
 ``bert_params_from_jax`` and ``bilstm_params_from_jax`` for the break and
 prosody predictors (``bert_params_to_jax`` is the way back: the flat
-``a/b/c``-keyed npz the JAX package's checkpoints use). The aligners' flax layouts become the port's: a Conv
+``a/b/c``-keyed npz the JAX package's checkpoints use), and
+``pos_tagger_params_from_jax`` / ``pos_tagger_params_to_jax`` for the
+contextual POS tagger. The aligners' flax layouts become the port's: a Conv
 kernel ``[k, in, out]`` → ``[out, in, k]``, a DenseGeneral kernel
 ``[dim, heads, hd]`` → ``[dim, heads·hd]`` and ``[heads, hd, dim]`` →
 ``[heads·hd, dim]`` (its bias flattened likewise), Dense kernels stay
@@ -446,4 +448,70 @@ def bilstm_params_from_jax(tree: dict) -> dict:
     want = {"norm.scale", "norm.bias", "dense.weight", "dense.bias", "out.weight", "out.bias"}
     if not want <= set(out):
         raise ValueError(f"{who}: missing {sorted(want - set(out))}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the contextual POS tagger
+# ---------------------------------------------------------------------------
+
+_POS_NAMES = (  # (flax path, port name, leaves, layout), as _BERT_NAMES
+    ("word_embed/embedding", "word_embed", (), "same"),
+    ("char_embed/embedding", "char_embed", (), "same"),
+    ("pos_embed", "pos_embed", (), "same"),
+    ("block{i}/LayerNorm_0/{leaf}", "blocks.{i}.ln1.{leaf}", ("scale", "bias"), "same"),
+    ("block{i}/LayerNorm_1/{leaf}", "blocks.{i}.ln2.{leaf}", ("scale", "bias"), "same"),
+    ("block{i}/SelfAttention_0/query/{leaf}", "blocks.{i}.attn.query.{leaf}", ("kernel", "bias"), "heads_in"),
+    ("block{i}/SelfAttention_0/key/{leaf}", "blocks.{i}.attn.key.{leaf}", ("kernel", "bias"), "heads_in"),
+    ("block{i}/SelfAttention_0/value/{leaf}", "blocks.{i}.attn.value.{leaf}", ("kernel", "bias"), "heads_in"),
+    ("block{i}/SelfAttention_0/out/{leaf}", "blocks.{i}.attn.out.{leaf}", ("kernel", "bias"), "out"),
+    ("block{i}/Dense_0/{leaf}", "blocks.{i}.fc1.{leaf}", ("kernel", "bias"), "same"),
+    ("block{i}/Dense_1/{leaf}", "blocks.{i}.fc2.{leaf}", ("kernel", "bias"), "same"),
+    ("LayerNorm_0/{leaf}", "ln_f.{leaf}", ("scale", "bias"), "same"),
+    ("out/{leaf}", "out.{leaf}", ("kernel", "bias"), "same"),
+)
+_POS_FROM = [(_name_rx(j, lv), p, kind) for j, p, lv, kind in _POS_NAMES]
+_POS_TO = [(_name_rx(p, lv), j, kind) for j, p, lv, kind in _POS_NAMES]
+
+
+def pos_tagger_params_from_jax(tree: dict) -> dict:
+    """Flax ``PosTagger`` params (a nested tree, with or without the outer
+    ``params``, or ``load_tagger``'s flat "/"-keyed arrays) → the
+    ``state_dict`` of this port's ``models.pos_tagger.PosTagger`` (float32).
+    The attention's DenseGeneral kernels ``query/key/value [d, heads, hd]``
+    and ``out [heads, hd, d]`` become ``[d, heads·hd]`` and ``[heads·hd, d]``,
+    the ``[heads, hd]`` biases ``[heads·hd]``; every other leaf keeps its
+    layout. An unknown or repeated leaf raises; a missing one fails
+    ``load_state_dict``."""
+    who = "pos_tagger_params_from_jax"
+    out = {}
+    for key, val in _flatten(tree["params"] if "params" in tree else tree).items():
+        name, kind, leaf = _rename(key, _POS_FROM, who)
+        v = np.array(val, np.float32)
+        if kind == "heads_in":
+            v = v.reshape(v.shape[0], -1) if leaf == "kernel" else v.reshape(-1)
+        elif kind == "out" and leaf == "kernel":
+            v = v.reshape(-1, v.shape[-1])
+        _put(out, name, key, torch.from_numpy(np.ascontiguousarray(v)), who)
+    return out
+
+
+def pos_tagger_params_to_jax(state: dict, cfg) -> dict:
+    """The inverse of ``pos_tagger_params_from_jax``: a port ``PosTagger``
+    ``state_dict`` → the flat ``{"a/b/c": float32 array}`` dict of the JAX
+    package's ``save_tagger`` keys (no outer ``params``). ``cfg`` (a
+    ``PosTaggerConfig``) gives the heads of the DenseGeneral layouts."""
+    who = "pos_tagger_params_to_jax"
+    hd = cfg.d_model // cfg.n_heads
+    out = {}
+    for key, val in state.items():
+        name, kind, leaf = _rename(key, _POS_TO, who)
+        v = val.detach().to("cpu", torch.float32).numpy()
+        if kind == "heads_in":
+            v = v.reshape(v.shape[0], cfg.n_heads, hd) if leaf == "kernel" else v.reshape(cfg.n_heads, hd)
+        elif kind == "out" and leaf == "kernel":
+            v = v.reshape(cfg.n_heads, hd, v.shape[-1])
+        if name in out:
+            raise ValueError(f"{who}: {key!r} maps onto {name!r} twice")
+        out[name] = np.ascontiguousarray(v)
     return out

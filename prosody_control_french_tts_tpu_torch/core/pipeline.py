@@ -184,7 +184,7 @@ class AudioPipeline:
         self.last_measure: MeasureResult | None = None
         self.last_split: list[tuple[int, int]] | None = None
         self.last_breaks = None
-        self.pos_backend = get_pos_backend(cfg.pos_backend)
+        self.pos_backend = get_pos_backend(cfg.pos_backend, device=self.device)
 
     def _make_tts(self) -> TTSBackend:
         if self.cfg.tts_backend == "fake":

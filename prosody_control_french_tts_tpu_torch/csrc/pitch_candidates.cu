@@ -19,7 +19,8 @@
 // element is a few compares, so the instructions a row costs decide how
 // close to that it comes. Design, compact then rank, one warp per row:
 //   1. detect: lane l holds lags l + 32q (q < P, P = ceil(L/32) a template
-//      argument) from coalesced loads of the needed lags only; a row with
+//      argument, 1 to 32: L up to 1024, the lags of a 44.1 kHz signal down
+//      to a ~45 Hz pitch floor) from coalesced loads of the needed lags only; a row with
 //      no lag above half_vth (silence and most unvoiced frames) stops here;
 //      in the others each neighbour r[i-1], r[i+1] comes from the next lane
 //      by one shuffle;
@@ -49,7 +50,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxPerLane = 16;  // L <= 512
+constexpr int kMaxPerLane = 32;  // L <= 1024
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -60,8 +61,9 @@ __host__ __device__ inline int list_cap(int min_lag, int max_lag) {
 }
 
 // Shared memory of one block: four arrays (value, lag, r[i-1], r[i+1]) of
-// list_cap entries per warp.
+// list_cap entries per warp (at most 65,408 bytes, at L 1024).
 inline int smem_bytes(int min_lag, int max_lag) { return kWarpsPerBlock * 4 * list_cap(min_lag, max_lag) * 4; }
+constexpr int kDefaultSmem = 48 * 1024;  // a launch may ask for more only with the kernel's attribute raised
 
 template <int P>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
@@ -159,8 +161,14 @@ template <int P>
 int launch(const float* r, float* lag_f, float* strength, uint8_t* valid, int rows, int L, int k, int min_lag,
            int max_lag, float half_vth, cudaStream_t stream) {
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  pitch_candidates_kernel<P><<<blocks, kWarpsPerBlock * kWarp, smem_bytes(min_lag, max_lag), stream>>>(
-      r, lag_f, strength, valid, rows, L, k, min_lag, max_lag, half_vth);
+  const int smem = smem_bytes(min_lag, max_lag);
+  if (smem > kDefaultSmem) {  // lags above ~800 (a pitch floor under ~55 Hz at 44.1 kHz)
+    const cudaError_t e =
+        cudaFuncSetAttribute(pitch_candidates_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pitch_candidates_kernel<P><<<blocks, kWarpsPerBlock * kWarp, smem, stream>>>(r, lag_f, strength, valid, rows, L,
+                                                                              k, min_lag, max_lag, half_vth);
   return (int)cudaGetLastError();
 }
 
@@ -180,7 +188,8 @@ extern "C" int pitch_candidates_launch(const void* r, void* lag_f, void* strengt
                                        int k, int min_lag, int max_lag, float half_vth, void* stream) {
   if (rows <= 0 || k <= 0) return (int)cudaGetLastError();
   if (L < 1 || L > kWarp * kMaxPerLane || min_lag < 1 || max_lag > L - 1) return (int)cudaErrorInvalidValue;
-  using T = Table<1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16>;
+  using T = Table<1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27,
+                  28, 29, 30, 31, 32>;
   const int P = (L + kWarp - 1) / kWarp;
   return T::fns[P - 1]((const float*)r, (float*)lag_f, (float*)strength, (uint8_t*)valid, rows, L, k, min_lag,
                        max_lag, half_vth, (cudaStream_t)stream);

@@ -14,7 +14,7 @@ import torch
 
 from . import kernels
 
-MAX_L = 512  # the kernel keeps a row's lags in registers, at most 16 per lane
+MAX_L = 1024  # the kernel keeps a row's lags in registers, at most 32 per lane
 
 launches = 0  # kernel launches (CUDA path only)
 

@@ -4,8 +4,9 @@ The deployment shape of the trained models: the break tagger marks pause
 positions (the reference's pause_bert inference), optionally the BiLSTM
 regressor fills pitch/volume/rate percentages, and the SSML builder emits
 the document. One forward per micro-batch on the predictor's device (on the
-card a CUDA graph per row bucket), padded to the model's max_len and to a
-power-of-two row bucket, and one device→host read of its results.
+card a CUDA graph per row bucket, every one captured when the predictor is
+built), padded to the model's max_len and to a power-of-two row bucket, and
+one device→host read of its results.
 
 HTTP front-end (stdlib): POST /ssml {"text": …} | {"texts": […]},
 GET /healthz.
@@ -68,8 +69,16 @@ class SSMLPredictor:
             self._mu = np.asarray(prosody.get("mu", np.zeros(3)))
             self._sd = np.asarray(prosody.get("sd", np.ones(3)))
 
+        self.max_batch = max_batch
         self._graphs: dict[int, dict] = {}  # row bucket → captured forward (on the card)
         self._graph_lock = threading.Lock()
+        if self.device.type == "cuda":
+            # every bucket captured here, on the constructing thread: entering
+            # torch.cuda.graph synchronises, collects garbage and empties the
+            # allocator's cache, none of which may run on a serving thread
+            with torch.inference_mode():
+                for b in self.bucket_sizes():
+                    self._graphs[b] = self._capture(b)
         self.batcher = MicroBatcher(self._predict_batch, max_batch=max_batch, max_wait_ms=max_wait_ms)
 
     # -- core -----------------------------------------------------------
@@ -84,18 +93,18 @@ class SSMLPredictor:
         b = 1
         while b < n:
             b *= 2
-        return min(b, self.batcher.max_batch)
+        return min(b, self.max_batch)
 
     def bucket_sizes(self) -> list[int]:
         """Every leading dimension _predict_batch can produce — the warmup
-        set (powers of two up to max_batch, plus max_batch itself when it
-        is not a power of two)."""
+        set and, on the card, the captured graphs (powers of two up to
+        max_batch, plus max_batch itself when it is not a power of two)."""
         sizes = []
         b = 1
-        while b < self.batcher.max_batch:
+        while b < self.max_batch:
             sizes.append(b)
             b *= 2
-        sizes.append(self.batcher.max_batch)
+        sizes.append(self.max_batch)
         return sizes
 
     def _predict_batch(self, texts: list[str]) -> list[dict]:
@@ -156,24 +165,28 @@ class SSMLPredictor:
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """One flush's forward, with one device→host read of its outputs.
         This runs on the batcher's finisher threads, and inference mode is
-        thread-local, so it opens its own. On the card each row bucket's
-        forward is a CUDA graph, captured on first use and replayed under a
-        lock: an eager forward is ~500 launches from Python, and with the
-        HTTP threads runnable each op that gives the interpreter lock back
-        can wait for it, which made a B 1 forward take 50 ms under load."""
+        thread-local, so it opens its own. On the card it replays, under a
+        lock, the CUDA graph that the constructor captured for the row
+        bucket, and never captures: an eager forward is ~500 launches from
+        Python, and with the HTTP threads runnable each op that gives the
+        interpreter lock back can wait for it, which made a B 1 forward
+        take 50 ms under load. A bucket with no graph raises."""
         with torch.inference_mode():
             if self.device.type != "cuda":
                 return self._outputs(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
             with self._graph_lock:
-                g = self._graphs.get(ids.shape[0]) or self._capture(ids.shape[0])
+                g = self._graphs.get(ids.shape[0])
+                if g is None:
+                    raise RuntimeError(f"no CUDA graph for a flush of {ids.shape[0]} rows (buckets "
+                                       f"{self.bucket_sizes()}; the predictor may be closed)")
                 g["ids"].copy_(torch.from_numpy(ids))
                 g["mask"].copy_(torch.from_numpy(mask))
                 g["graph"].replay()
                 return g["out"].cpu().numpy()
 
     def _capture(self, B: int) -> dict:
-        """Capture the forward of a [B, max_len] flush (the caller holds the
-        lock and inference mode)."""
+        """Capture the forward of a [B, max_len] flush (the constructor calls
+        it in inference mode, before the batcher starts)."""
         L = self.cfg.max_len
         ids = torch.full((B, L), self.tokenizer.pad_id, dtype=torch.int32, device=self.device)
         mask = torch.ones((B, L), dtype=torch.bool, device=self.device)
@@ -184,10 +197,11 @@ class SSMLPredictor:
                 self._outputs(ids, mask)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # thread-local: another predictor's finishers may read results back
+        # (a synchronising call) while this one is being built
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self._outputs(ids, mask)
-        self._graphs[B] = {"graph": graph, "ids": ids, "mask": mask, "out": out}
-        return self._graphs[B]
+        return {"graph": graph, "ids": ids, "mask": mask, "out": out}
 
     def _to_ssml(self, words: list[str], word_break: list[bool], pros=None) -> str:
         from ..utils.text import xml_escape
@@ -239,6 +253,8 @@ class SSMLPredictor:
             #   a dropped SYN under concurrent load retransmits after ~1 s.
             # - Nagle off + single-write responses: headers and body written
             #   as separate segments stall ~40 ms on delayed ACK.
+            # - A request whose prediction raises is answered too (503 for a
+            #   timeout, 500 otherwise), so the connection stays usable.
             protocol_version = "HTTP/1.1"
             disable_nagle_algorithm = True
 
@@ -250,8 +266,9 @@ class SSMLPredictor:
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                self._headers_buffer.append(b"\r\n")  # end_headers' blank line, sent with the body
+                self.wfile.write(b"".join(self._headers_buffer) + body)
+                self._headers_buffer = []
 
             def do_GET(self):  # noqa: N802
                 if self.path == "/healthz":
@@ -267,10 +284,21 @@ class SSMLPredictor:
                 except (ValueError, json.JSONDecodeError):
                     return self._json({"error": "invalid JSON"}, 400)
                 if "text" in req:
-                    return self._json(svc.predict(str(req["text"])))
-                if "texts" in req and isinstance(req["texts"], list):
-                    return self._json([svc.predict(str(t)) for t in req["texts"]])
-                return self._json({"error": "expected 'text' or 'texts'"}, 400)
+                    texts = [str(req["text"])]
+                elif "texts" in req and isinstance(req["texts"], list):
+                    texts = [str(t) for t in req["texts"]]
+                else:
+                    return self._json({"error": "expected 'text' or 'texts'"}, 400)
+                # every request gets a JSON answer: a flush that failed or a
+                # batcher that timed out is the service's fault, not the client's
+                try:
+                    out = [svc.predict(t) for t in texts]
+                except TimeoutError as e:
+                    return self._json({"error": f"timed out: {e}"}, 503)
+                except Exception as e:  # noqa: BLE001 — reported to the client, logged with its traceback
+                    log.exception("prediction failed")
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 500)
+                return self._json(out[0] if "text" in req else out)
 
         return Handler
 

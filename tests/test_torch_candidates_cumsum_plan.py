@@ -123,7 +123,7 @@ def test_candidates_plan_on_fixtures_equals_plain(seed):
 @pytest.mark.parametrize("L", CAND_LENGTHS)
 def test_candidates_plan_on_maxima_rows_equals_plain(L, k):
     """Rows with 0, 1, k − 1, k, k + 1, 32, 33 and (L − 1) // 2 maxima, with
-    and without exact ties, at every per-lane count P = 1..16: bit for bit,
+    and without exact ties, at every per-lane count P = 1..32: bit for bit,
     every count reached, the overflow path taken where the row allows."""
     r = maxima_rows(L, k, seed=L * 100 + k)
     *_, counts, rounds = _assert_plan_equals_plain(r, k, 1, L - 1)

@@ -31,7 +31,10 @@ def test_importing_every_module_loads_no_jax():
                  "core.synchronized", "tts.batch", "align.whisper", "align.ctc", "align.ctc_aligner", "ops.dtw",
                  "ops.ctc_viterbi", "align.lexicon_decode", "align.synth_speech", "models.bpe_tokenizer",
                  "models.bert", "models.bilstm", "models.datasets", "models.break_trainer", "models.bilstm_runner",
-                 "models.fewshot", "models.experiment", "models.report_html", "serving.batcher", "serving.predictor"):
+                 "models.fewshot", "models.experiment", "models.report_html", "serving.batcher", "serving.predictor",
+                 "models.pos_data", "models.pos_tagger", "eval.yin", "eval.metrics", "eval.evaluate_voice",
+                 "eval.corpus_compare", "eval.dataset_stats", "eval.abtest", "eval.aligner_harness",
+                 "eval.real_audio_agreement", "align.needleman_wunsch", "align.levenshtein_merge"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -272,3 +275,48 @@ def test_break_predictor_entry_points_default_to_cuda():
     assert len(bilstm.train_bilstm(xs, ys, epochs=1, device="cpu")[1]) == 1
     assert bilstm_runner.embed_sentences(["le chat dort"], tok, cfg, device="cpu").shape == (1, 16)
     assert isinstance(fewshot.LocalLLMClient(model, tok, max_new=2, device="cpu").complete("le chat"), str)
+
+
+def test_pos_tagger_and_eval_entry_points_default_to_cuda(tmp_path):
+    """The contextual POS tagger and the evaluation layer: the tagger, its
+    backend, its trainer, the cross-aligner agreement and the corpus
+    features default to CUDA and raise without a card; asked for the CPU,
+    they run."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.eval import corpus_compare, metrics, real_audio_agreement
+    from prosody_control_french_tts_tpu_torch.models import pos_tagger
+    from prosody_control_french_tts_tpu_torch.models.pos_data import generate_treebank
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio, write_wav
+
+    sents = generate_treebank(8, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pos_tagger.ContextualTagger()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pos_tagger.get_pos_backend("contextual")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pos_tagger.train_pos_tagger(sents, steps=1, batch_size=2)
+    clip = Audio(np.zeros(16000, np.float32), 16000)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        real_audio_agreement.segment_agreement(clip, "s")
+    write_wav(tmp_path / "a.wav", clip)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        corpus_compare.extract_features(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        metrics.f0_contour(clip.samples, 16000, method="boersma")
+    assert pos_tagger.get_pos_backend("lexicon").pos_of_factory is None
+    assert len(pos_tagger.ContextualTagger(device="cpu").tag_tokens(["le", "son"])) == 2
+    assert pos_tagger.get_pos_backend("contextual", device="cpu").pos_of_factory is not None
+    state, _, _ = pos_tagger.train_pos_tagger(sents, steps=1, batch_size=2, log_every=0, device="cpu")
+    assert all(v.device.type == "cpu" for v in state.values())
+    assert corpus_compare.extract_features(tmp_path, device="cpu")["pitch_mean"].shape == (1,)
+
+
+def test_packaged_pos_checkpoint_is_the_jax_packages():
+    """The port reads its own copy of the tagger's checkpoint, byte for byte
+    the JAX package's."""
+    mine = PKG / "models" / "pretrained" / "pos_fr.npz"
+    theirs = ROOT / "prosody_control_french_tts_tpu" / "models" / "pretrained" / "pos_fr.npz"
+    assert mine.read_bytes() == theirs.read_bytes()

@@ -54,10 +54,11 @@ def candidate_fixtures(seed):
 
 
 # kernel A's per-lane register counts P = ceil(L / 32): one L for each
-# instantiation (P 1..16), with the edges 3, 32, 33, 297 (the measure path's)
-# and 512
+# instantiation (P 1..32), with the edges 3, 32, 33, 297 (the measure path's),
+# 512, 591 and 738 (the corpus features' and the eval contour's lags at
+# 44.1 kHz, pitch floors 75 and 60 Hz) and 1024
 CAND_LENGTHS = (3, 27, 32, 33, 64, 65, 127, 128, 129, 160, 192, 224, 256, 288, 297, 320, 352, 384, 416, 448, 480, 511,
-                512)
+                512, 544, 576, 591, 640, 672, 704, 738, 768, 800, 832, 864, 896, 928, 960, 992, 1023, 1024)
 
 
 def maxima_counts(L, k):
@@ -154,7 +155,7 @@ def test_candidates_kernel_matches_plain(cuda, seed):
 @pytest.mark.parametrize("k", [1, K_CAND, 40])
 @pytest.mark.parametrize("L", CAND_LENGTHS)
 def test_candidates_kernel_on_maxima_rows(cuda, L, k):
-    """Every per-lane instantiation (P 1..16), rows with 0 .. (L − 1) // 2
+    """Every per-lane instantiation (P 1..32), rows with 0 .. (L − 1) // 2
     maxima (the rank's overflow rounds past 32) and exact ties across the
     rounds: valid equal, lag_f and strength within 1e-6."""
     r = torch.from_numpy(maxima_rows(L, k, seed=L * 100 + k)).to(cuda)
@@ -313,6 +314,8 @@ def test_wrappers_count_launches_and_check_arguments(cuda):
         candidates.topk_parabolic(r.double(), K_CAND, MIN_LAG, MAX_LAG, VTH)
     with pytest.raises(ValueError):
         candidates.topk_parabolic(r.t(), K_CAND, MIN_LAG, MAX_LAG, VTH)
+    with pytest.raises(ValueError, match="exceeds the kernel's 1024 lags"):
+        candidates.topk_parabolic(torch.zeros((2, 1025), device=cuda), K_CAND, MIN_LAG, MAX_LAG, VTH)
     args = [torch.from_numpy(a).to(cuda) for a in random_viterbi_inputs(0, K=33)]
     with pytest.raises(ValueError):
         viterbi.viterbi_path(*args, 0.1, 0.2)

@@ -308,8 +308,6 @@ def test_load_config_and_main(tmp_path):
 
 @pytest.mark.parametrize("raw,exc,match", [
     pytest.param({"tts_backend": "azure"}, NotImplementedError, "network", id="raw2-NotImplementedError-network"),
-    pytest.param({"pos_backend": "contextual"}, NotImplementedError, "item 12",
-                 id="raw3-NotImplementedError-item 12"),
 ])
 def test_pipeline_refuses_what_is_not_ported(tmp_path, raw, exc, match):
     cfg = TConfig.from_dict(dict({"tts_backend": "fake"}, **raw), tmp_path)

@@ -405,6 +405,62 @@ def test_http_routes(models):
         close(tp)
 
 
+def test_a_failed_prediction_is_answered_with_json_and_the_connection_lives(models, monkeypatch):
+    """``do_POST`` answers a request whose prediction raises: 500 with a JSON
+    body for a flush's error, 503 for the batcher's timeout, and the same
+    kept-alive connection then serves the next request (the JAX package's
+    handler lets the exception escape and writes no reply)."""
+    _, tp = predictors(models, False, max_batch=4)
+    httpd = tp.serve(port=0)
+    real = tp.predict
+    faults = iter([RuntimeError("flush failed"), TimeoutError("batched inference timed out")])
+
+    def predict(text):
+        if text == "boom":
+            raise next(faults)
+        return real(text)
+
+    monkeypatch.setattr(tp, "predict", predict)
+    conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+    try:
+        got = []
+        for body in ({"text": "boom"}, {"text": "bonjour le monde"}, {"texts": ["un deux", "boom"]},
+                     {"text": "le chat dort"}):
+            conn.request("POST", "/ssml", json.dumps(body), {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            assert resp.getheader("Content-Type") == "application/json"
+            got.append((resp.status, json.loads(resp.read())))
+        assert [code for code, _ in got] == [500, 200, 503, 200]
+        assert "flush failed" in got[0][1]["error"] and "timed out" in got[2][1]["error"]
+        assert got[1][1]["words"] == ["bonjour", "le", "monde"] and got[3][1]["words"] == ["le", "chat", "dort"]
+    finally:
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()
+        close(tp)
+
+
+def test_a_cpu_predictor_never_captures_and_a_flush_never_captures(models, monkeypatch):
+    """CUDA graphs are captured only by the constructor of a predictor on the
+    card, for every bucket: a CPU predictor captures none, and a flush on the
+    card with no graph for its bucket raises instead of capturing on the
+    finisher thread it runs on."""
+    calls = []
+    monkeypatch.setattr(SSMLPredictor, "_capture", lambda self, B: calls.append(B))
+    _, tp = predictors(models, False, max_batch=8)
+    try:
+        assert len(tp._predict_batch(TEXTS[:5])) == 5 and tp.predict(TEXTS[0])["words"] == TEXTS[0].split()
+        assert calls == [] and tp._graphs == {}
+        tp.device = torch.device("cuda")  # a predictor on the card whose graphs are gone: the flush must not capture
+        ids = np.zeros((2, models["tc"].max_len), np.int32)
+        with pytest.raises(RuntimeError, match="no CUDA graph for a flush of 2 rows"):
+            tp._forward(ids, ids > 0)
+        assert calls == []
+    finally:
+        tp.device = torch.device("cpu")
+        close(tp)
+
+
 # -- the few-shot harness's LLM client -------------------------------------------
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The break-predictor serving path alone: phase 20 of ``chip_smoke.py``.
 
-    python3 tools/break_tagger_phase.py [--seed 0] [--compare-eager]
+    python3 tools/break_tagger_phase.py [--seed 0] [--turns N]
 
 Run from the root of a checkout on a machine with an NVIDIA H100. It runs
 ``chip_smoke.break_tagger_phase`` at bert-base width (card against CPU,
@@ -12,10 +12,13 @@ experiment drivers read a synthetic ``bdd.json`` (40 segments of 8 text runs
 of three words from a 16-word vocabulary, a break after every third run, a
 period every fourth: ``tests/test_harnesses.py:make_bdd``'s recipe) instead
 of the multi-voice run's. Prints the card, the phase's lines and its result
-as one JSON line. ``--compare-eager`` then serves the same load again with
-the predictor's forward run eagerly (the design before the per-bucket CUDA
-graphs), in turns with the graphs (batched: graphs, eager, eager, graphs;
-unbatched: graphs, eager, graphs), one JSON line per turn.
+as one JSON line. ``--turns N`` serves instead N rounds of four turns in one
+process, each on a new predictor closed after it: batched with the CUDA
+graphs, batched with the forward run eagerly (the design before the
+per-bucket graphs), unbatched eager, unbatched graphs; one JSON line a turn.
+Before each turn ``faulthandler.dump_traceback_later`` is armed, so a turn
+that does not end within TURN_LIMIT_S seconds prints every thread's stack
+and ends the process with a non-zero code.
 """
 
 from __future__ import annotations
@@ -58,37 +61,70 @@ def eager_forward(self, ids, mask):
         return self._outputs(ids_d, mask_d).cpu().numpy()
 
 
-def compare_eager(card: str, seed: int) -> None:
+SERVING = {"batched": (64, 4.0), "unbatched": (1, 0.0)}
+TURN_LIMIT_S = 120.0  # far above the longest turn, unbatched eager (~46 s)
+
+
+def serving_setup(seed: int):
     import numpy as np
 
     import chip_smoke as cs
     from prosody_control_french_tts_tpu_torch.models.bert import BertConfig, BreakTagger
     from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer
-    from prosody_control_french_tts_tpu_torch.serving.predictor import SSMLPredictor
 
     rng = np.random.default_rng(seed)
     texts = [" ".join(rng.choice(cs.BERT_WORDS, size=int(rng.integers(6, 14))))
              for _ in range(cs.SERVE_CLIENTS * cs.SERVE_PER_CLIENT)]
     tok = WordPieceTokenizer.train([" ".join(cs.BERT_WORDS)], vocab_size=512, min_freq=1)
     cfg = BertConfig(vocab_size=max(len(tok), 512))
-    state = BreakTagger(cfg, seed=seed, device="cpu").state_dict()
-    for label, max_batch, wait_ms, turns in (("batched", 64, 4.0, ("graphs", "eager", "eager", "graphs")),
-                                             ("unbatched", 1, 0.0, ("graphs", "eager", "graphs"))):
-        for turn in turns:
-            svc = SSMLPredictor(tok, cfg, state, device="cuda", max_batch=max_batch, max_wait_ms=wait_ms)
-            if turn == "eager":
-                svc._forward = eager_forward.__get__(svc)
-            try:
-                r = cs.serve_load(svc, texts, cs.SERVE_CLIENTS, cs.SERVE_PER_CLIENT)
-            finally:
-                svc.close()
-            print(json.dumps({"serving": label, "forward": turn, **r, "card": card}))
+    return texts, tok, cfg, BreakTagger(cfg, seed=seed, device="cpu").state_dict()
+
+
+def serve_turn(setup, label: str, turn: str) -> dict:
+    """One turn: a new predictor, bench.py's load, the predictor closed."""
+    import chip_smoke as cs
+    from prosody_control_french_tts_tpu_torch.serving.predictor import SSMLPredictor
+
+    texts, tok, cfg, state = setup
+    max_batch, wait_ms = SERVING[label]
+    svc = SSMLPredictor(tok, cfg, state, device="cuda", max_batch=max_batch, max_wait_ms=wait_ms)
+    if turn == "eager":
+        svc._forward = eager_forward.__get__(svc)
+    try:
+        r = cs.serve_load(svc, texts, cs.SERVE_CLIENTS, cs.SERVE_PER_CLIENT)
+    finally:
+        closed = svc.close()
+    return {"serving": label, "forward": turn, **r, "closed_clean": closed}
+
+
+def hang_turns(card: str, seed: int, rounds: int) -> None:
+    import faulthandler
+    import threading
+    import time
+
+    import torch
+
+    setup = serving_setup(seed)
+    done = {"graphs": 0, "eager": 0}
+    for i in range(rounds):
+        for label, turn in (("batched", "graphs"), ("batched", "eager"), ("unbatched", "eager"),
+                            ("unbatched", "graphs")):
+            faulthandler.dump_traceback_later(TURN_LIMIT_S, exit=True)
+            t0 = time.perf_counter()
+            r = serve_turn(setup, label, turn)
+            faulthandler.cancel_dump_traceback_later()
+            done[turn] += 1
+            print(json.dumps({"round": i, "serving": label, "forward": turn, "turn_s": round(time.perf_counter() - t0, 3),
+                              "sentences_per_s": round(r["sentences_per_s"], 1), "p50_ms": round(r["p50_ms"], 2),
+                              "closed_clean": r["closed_clean"], "threads_after": threading.active_count(),
+                              "allocated_mib": round(torch.cuda.memory_allocated() / 2**20, 1)}), flush=True)
+    print(json.dumps({"hang_turns": done, "hung": 0, "turn_limit_s": TURN_LIMIT_S, "card": card}))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--compare-eager", action="store_true", help="serve again with the eager forward, in turns")
+    ap.add_argument("--turns", type=int, default=0, help="serve N rounds of four turns instead of the phase")
     args = ap.parse_args()
     import torch
 
@@ -98,11 +134,12 @@ def main() -> int:
     import chip_smoke
 
     card = chip_smoke.card_line()
-    print(card)
+    print(card, flush=True)
+    if args.turns:
+        hang_turns(card, args.seed, args.turns)
+        return 0
     out = chip_smoke.break_tagger_phase(card, args.seed, json.dumps(synthetic_bdd(seed=args.seed)))
     print(json.dumps(out))
-    if args.compare_eager:
-        compare_eager(card, args.seed)
     return 0
 
 
