@@ -6,7 +6,8 @@ serving path, the LLM training path (LoRA fine-tuning, at L 512 with
 kernel G and at L 1024 / 768 with the flash attention), the acoustic
 aligners (Whisper, CTC) alone and in the eight-step pipeline, the break
 predictors' serving path (the BERT tagger behind the SSML HTTP service), and
-the contextual POS tagger with the evaluation layer.
+the contextual POS tagger with the evaluation layer, and the training
+halves of the aligners and the separator.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -204,9 +205,30 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     contextual warm run, ``extract_features`` (75 Hz floor, 591 lags) and
     the Boersma contour (60 Hz, 738 lags) is held against its plain version.
 
+22. (run after phase 20) the training halves of the aligners and the
+    separator: ``train_ctc_aligner`` at the default geometry (dim 128, 2
+    layers, 4 heads, 80 mels, V 47) on a corpus that ``build_natural_corpus``
+    gathers from a voice of synthetic French segments (12 segments of up to
+    19.5 s, 3 epochs): the losses fall, ``ctc_loss`` counts 2 launches a step,
+    the checkpoint reloads through ``CTCAligner(weights_path=...)`` and aligns
+    every word, the first step on the card agrees with the CPU's (loss 1e-3
+    relative; updated weights at most 2.5 lr apart, at most 5 % moved the
+    other way); ``ctc_loss`` held to its plain version (loss 1e-5 relative,
+    gradient 1e-5 x max(1, loss / 100)) on every captured step and on edge
+    cases (label_len 0 and 1, input_len < T, repeated labels, an infeasible
+    alignment, one frame, S 1,025 / 2,049 / 4,095, and 4,097, which must
+    raise), and timed at the largest step (forward and backward launches as
+    CUDA-graph replays, beside its plain loops and ``F.ctc_loss``, with its
+    bound and chain floors); ``pretrain_ctc.pretrain`` and
+    ``pretrain_masknet`` as the recipes stand, gates on; the Whisper recipe
+    at ``synth_fr_config()`` cut to 192 sentences and 2 epochs, gates read
+    and printed (the whole recipe: ``tools/aligner_training_phase.py``). Each
+    recipe's ms a step by CUDA events; every checkpoint in a temporary
+    directory.
+
 It prints the card's name and power limit, one line per kernel, a
-``{"kernels": [...]}`` line with fourteen entries (mask_ema and ctc_viterbi,
-which replace no TPU kernel, among them), and last ``{"ok": true,
+``{"kernels": [...]}`` line with fifteen entries (mask_ema, ctc_viterbi and
+ctc_loss, which replace no TPU kernel, among them), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -3516,6 +3538,413 @@ def pos_eval_phase(tmp: Path, seed: int, card: str, mv_base: Path, device="cuda"
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training halves of the aligners and the separator (phase 22)
+# ---------------------------------------------------------------------------
+
+# not a TPU kernel: the CTC loss's lax.scan and JAX's autodiff of it
+KERNEL_CTC_LOSS = dict(
+    name="ctc_loss",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/ctc_loss.cu",
+    replaces="prosody_control_french_tts_tpu/align/ctc.py:95",
+)
+# ctc_loss vs plain: the same float32 recursion, exp and log1p maybe a bit
+# apart; the rounding of alpha grows with its size (about the loss)
+TOL_CTC_LOSS = 1e-5  # loss, relative
+TOL_CTC_LOSS_GRAD = 1e-5  # gradient: x max(1, loss / 100) absolute; x its largest entry when infeasible
+# operations a state a frame (float32, for the operations bound): the forward's
+# two logaddexp (sub, abs, neg, exp, log1p, max, add each) and the add; the
+# backward's recomputed logaddexp, four subtracts, four exps, five multiplies
+# and two adds
+CTC_LOSS_OPS = {"fwd": 15, "bwd": 29}
+TRAIN_CTC_SEGMENTS, TRAIN_CTC_EPOCHS = 12, 3  # phase 22's per-project corpus: segments of up to 19.5 s
+WHISPER_CUT = dict(n_sentences=192, epochs=2)  # the Whisper recipe in phase 22 (full: tools/aligner_training_phase.py)
+
+
+class StepClock:
+    """Wrap a recipe's step factory (``owner.name``, a module function or a
+    class's method): CUDA events recorded around each step it makes (no
+    synchronise), so ``ms_per_step(skip)`` reads the stream's time from the
+    end of step ``skip`` (the first step's start for 0) to the last step's
+    end over the steps between, host gaps included."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.orig = owner, name, getattr(owner, name)
+        self.events = []
+
+    @property
+    def steps(self) -> int:
+        return len(self.events) - 1
+
+    def _event(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __enter__(self):
+        orig = self.orig
+
+        def factory(*a, **k):
+            step = orig(*a, **k)
+
+            def timed(*sa, **sk):
+                if not self.events:
+                    self.events.append(self._event())
+                r = step(*sa, **sk)
+                self.events.append(self._event())
+                return r
+
+            return timed
+
+        setattr(self.owner, self.name, factory)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+    def ms_per_step(self, skip: int = 0) -> float:
+        self.events[-1].synchronize()
+        return self.events[skip].elapsed_time(self.events[-1]) / (self.steps - skip)
+
+
+class CtcLossCapture:
+    """Wrap ``ctc_aligner.ctc_loss`` (what the train step calls) to keep a
+    detached copy of each call's inputs."""
+
+    def __init__(self):
+        from prosody_control_french_tts_tpu_torch.align import ctc_aligner
+
+        self.module, self.orig, self.calls = ctc_aligner, ctc_aligner.ctc_loss, []
+
+    def __enter__(self):
+        def wrapper(lp, labels, input_len, label_len, blank=0):
+            self.calls.append((lp.detach().clone(), list(labels), int(input_len), int(label_len)))
+            return self.orig(lp, labels, input_len, label_len, blank=blank)
+
+        self.module.ctc_loss = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ctc_loss = self.orig
+
+
+def ctc_loss_pair(lp, labels, inp: int, lab: int):
+    """(kernel loss, kernel grad, plain loss, plain grad) on the card."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import ctc_loss
+
+    got_lp = lp.detach().clone().requires_grad_(True)
+    got = ctc_loss.ctc_loss(got_lp, torch.as_tensor(labels), inp, lab)
+    got.backward()
+    want_lp = lp.detach().clone().requires_grad_(True)
+    want = ctc_loss.ctc_loss_plain(want_lp, torch.as_tensor(labels).to(lp.device), inp, lab)
+    want.backward()
+    return float(got), got_lp.grad, float(want), want_lp.grad
+
+
+def check_ctc_loss(lp, labels, inp: int, lab: int, label: str) -> tuple[float, float]:
+    """ctc_loss against its plain version: (relative loss error, gradient
+    error over its limit's scale)."""
+    g, gg, w, wg = ctc_loss_pair(lp, labels, inp, lab)
+    rel = abs(g - w) / max(abs(w), 1e-30)
+    scale = max(1.0, float(wg.abs().max())) if w > 1e29 else max(1.0, abs(w) / 100.0)
+    gerr = float((gg - wg).abs().max()) / scale
+    if not (rel <= TOL_CTC_LOSS and gerr <= TOL_CTC_LOSS_GRAD):
+        raise SystemExit(f"ctc_loss differs from its plain version ({label}): loss {g} vs {w} (rel {rel:.2e}), "
+                         f"gradient error {gerr:.2e} of its scale")
+    return rel, gerr
+
+
+def ctc_loss_edge_cases(dev) -> int:
+    """ctc_loss against plain at label_len 0 and 1, input_len < T, repeated
+    labels, an infeasible alignment, one frame, S at the kernel's limit
+    (4,095), and one past it (which must raise)."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import ctc_loss
+
+    cases = [(40, 10, 5, 40, 0, None), (40, 10, 5, 40, 1, None), (1000, 47, 300, 700, 250, None),
+             (30, 5, 6, 30, 6, [1, 1, 2, 2, 1, 1]), (10, 10, 15, 10, 15, None), (9, 6, 3, 1, 2, None),
+             (1100, 48, 512, 1100, 512, None), (2200, 48, 1024, 2200, 1024, None), (4200, 48, 2047, 4200, 2047, None)]
+    for T, V, L, inp, lab, labels in cases:
+        rng = np.random.default_rng(T + L)
+        x = rng.standard_normal((T, V)).astype(np.float32) * 3.0
+        lp = torch.from_numpy((x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)).to(dev)
+        lab_list = labels if labels is not None else rng.integers(1, V, L).tolist()
+        check_ctc_loss(lp, lab_list, inp, lab, f"edge T {T} V {V} L {L} input_len {inp} label_len {lab}")
+    lp = torch.zeros((4200, 48), device=dev)
+    try:
+        ctc_loss.ctc_loss(lp, list(range(1, 48)) * 43 + [1] * 27, 4200, 2048)
+    except ValueError as e:
+        if "4096" not in str(e):
+            raise
+    else:
+        raise SystemExit("ctc_loss took 4,097 states")
+    return len(cases)
+
+
+def ctc_loss_row(calls, launches: int, edge_cases: int, card: str, lib) -> dict:
+    """ctc_loss timed at the largest captured train_ctc call: the forward and
+    the backward launches alone as CUDA-graph replays, the plain version
+    (forward loop, backward loop) and F.ctc_loss(reduction="sum") forward and
+    backward on the same inputs, the bytes and operations bound and each
+    launch's chain floor."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from prosody_control_french_tts_tpu_torch.ops import ctc_loss, kernels
+
+    lp, labels, inp, lab = max(calls, key=lambda c: c[0].shape[0] * len(c[1]))
+    dev = lp.device
+    T, V = lp.shape
+    S = 2 * len(labels) + 1
+    Tv = min(max(inp, 1), T)
+    ext, skip = ctc_loss._states(torch.as_tensor(labels), 0)
+    col_ptr, col_states = ctc_loss._column_lists(ext, V)
+    meta = torch.cat([ext.int(), skip.int(), col_ptr, col_states]).to(dev)
+    alpha = torch.empty((T, S), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    go = torch.ones((), dtype=torch.float32, device=dev)
+    dlogp = torch.empty((T, V), dtype=torch.float32, device=dev)
+    de = torch.empty((Tv, S), dtype=torch.float32, device=dev)
+
+    def fwd():  # on the current stream: a graph capture runs it on its own
+        kernels.check(lib.ctc_loss_fwd_launch(lp.data_ptr(), meta.data_ptr(), meta[S:].data_ptr(), alpha.data_ptr(),
+                                              loss.data_ptr(), T, S, V, Tv, lab, kernels.stream_ptr(lp)), "ctc_loss_fwd")
+
+    def bwd():
+        kernels.check(lib.ctc_loss_bwd_launch(alpha.data_ptr(), meta[S:].data_ptr(), meta[2 * S:].data_ptr(),
+                                              meta[2 * S + V + 1:].data_ptr(), go.data_ptr(), de.data_ptr(),
+                                              dlogp.data_ptr(), T, S, V, Tv, lab, kernels.stream_ptr(lp)), "ctc_loss_bwd")
+
+    fwd()
+    ms_f = graph_ms(fwd, reps=10)
+    ms_b = graph_ms(bwd, reps=10)
+    emit, skip_d = lp[:, ext.to(dev)], skip.to(dev)
+    plain_f = cuda_ms(lambda: ctc_loss.ctc_loss_forward_plain(emit, skip_d, inp, lab), reps=1, warmup=1)
+    a_plain, _ = ctc_loss.ctc_loss_forward_plain(emit, skip_d, inp, lab)
+    plain_b = cuda_ms(lambda: ctc_loss.ctc_loss_backward_plain(a_plain, ext, skip_d, T, V, lab, go), reps=1, warmup=1)
+    lab_t = torch.as_tensor(labels, device=dev)[None]
+    il, tl = torch.tensor([inp], device=dev), torch.tensor([lab], device=dev)
+    lib_f = cuda_ms(lambda: F.ctc_loss(lp[:, None], lab_t, il, tl, reduction="sum"), reps=10, warmup=2)
+    lp_g = lp.detach().clone().requires_grad_(True)
+
+    def lib_fb():
+        F.ctc_loss(lp_g[:, None], lab_t, il, tl, reduction="sum").backward()
+
+    lib_b = max(cuda_ms(lib_fb, reps=10, warmup=2) - lib_f, 0.0)
+    out = torch.empty(1, device=dev)
+    steps = 100_000
+    step_ns = cuda_ms(lambda: kernels.check(lib.ctc_loss_latency_probe(out.data_ptr(), steps, kernels.stream_ptr(lp)),
+                                            "ctc_loss_latency_probe"), reps=3) * 1e6 / steps
+    alu_ns = alu_latency_ns(lib)
+    floor_f = (Tv - 1) * step_ns / 1e6
+    floor_b = (Tv - 1) * 3 * alu_ns / 1e6
+    bytes_f, bytes_b = T * V * 4 + len(labels) * 4 + 4, T * V * 4 + 4
+    ops_f, ops_b = (Tv - 1) * S * CTC_LOSS_OPS["fwd"], (Tv - 1) * S * CTC_LOSS_OPS["bwd"]
+    bound_f = max(bytes_f / HBM_BYTES_PER_S, ops_f / PEAK_FLOPS["f32"]) * 1e3
+    bound_b = max(bytes_b / HBM_BYTES_PER_S, ops_b / PEAK_FLOPS["f32"]) * 1e3
+    by = "operations" if ops_f / PEAK_FLOPS["f32"] > bytes_f / HBM_BYTES_PER_S else "bytes"
+    row = dict(KERNEL_CTC_LOSS, launches=launches, max_abs_err=0.0, ms=ms_f + ms_b, plain_ms=plain_f + plain_b,
+               bound_ms=bound_f + bound_b, bound_by=by, library_ms=lib_f + lib_b, check="pass",
+               ms_fwd=ms_f, ms_bwd=ms_b, plain_ms_fwd=plain_f, plain_ms_bwd=plain_b, library_ms_fwd=lib_f,
+               library_ms_bwd=lib_b, bound_ms_fwd=bound_f, bound_ms_bwd=bound_b, chain_floor_ms_fwd=floor_f,
+               chain_floor_ms_bwd=floor_b, shape_T_V_S_Tv=[T, V, S, Tv], calls_checked=len(calls),
+               edge_cases_checked=edge_cases, states_per_thread=lib.ctc_loss_states_per_thread(S))
+    print(f"kernel ctc_loss: ms={ms_f + ms_b:.4f} (forward {ms_f:.4f} + backward {ms_b:.4f}, CUDA-graph replays at "
+          f"[T, V] [{T}, {V}], S {S}, {Tv} frames: the largest train_ctc step of phase 22) launches={launches} "
+          f"bound_ms={bound_f + bound_b:.6f} ({by}: forward {bytes_f} bytes, {ops_f} float32 operations; backward "
+          f"{bytes_b} bytes, {ops_b} operations) chain_floor_ms forward {floor_f:.4f} (({Tv} - 1) x {step_ns:.2f} ns, "
+          f"one state's step measured by ctc_loss_latency_probe) backward {floor_b:.4f} (({Tv} - 1) x 3 x "
+          f"{alu_ns:.2f} ns) plain_ms={plain_f + plain_b:.1f} (forward {plain_f:.1f}, backward {plain_b:.1f}) "
+          f"library_ms={lib_f + lib_b:.4f} (F.ctc_loss sum: forward {lib_f:.4f}, backward {lib_b:.4f}) "
+          f"max_abs_err within limits on {len(calls)} captured calls and {edge_cases} edge cases card={card}")
+    return row
+
+
+def write_sentence_voice(base: Path, name: str, n_segments: int, seed: int, max_s: float = 19.5):
+    """A voice directory of synthetic French: segment_ph<i>.wav (sentences
+    0.3 s apart, as many as fit in ``max_s``, under train_ctc's 20 s cap;
+    16 kHz) with its transcription/segment_ph<i>.txt, as the pipeline leaves
+    them for ``build_natural_corpus``."""
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.align.synth_speech import SynthSpec, sample_sentences, synth_sentence
+    from prosody_control_french_tts_tpu_torch.utils.wavio import write_wav
+
+    spec = SynthSpec()
+    sents = iter(enumerate(sample_sentences(20 * n_segments, seed=seed)))
+    gap = np.zeros(int(0.3 * spec.sample_rate), np.float32)
+    (base / name / "audio").mkdir(parents=True, exist_ok=True)
+    (base / name / "transcription").mkdir(parents=True, exist_ok=True)
+    pending = None
+    for i in range(n_segments):
+        parts, words, n = [], [], 0
+        while True:
+            j, s = pending or next(sents)
+            pending = None
+            x = synth_sentence(s, spec, seed=seed + j)[0]
+            if words and n + x.size + gap.size > max_s * spec.sample_rate:
+                pending = (j, s)
+                break
+            parts += [x, gap]
+            words.append(s)
+            n += x.size + gap.size
+        write_wav(base / name / "audio" / f"segment_ph{i + 1}.wav", np.concatenate(parts), spec.sample_rate)
+        (base / name / "transcription" / f"segment_ph{i + 1}.txt").write_text(" ".join(words), encoding="utf-8")
+
+
+def train_ctc_card_vs_cpu(corpus: Path, dev) -> dict:
+    """One train_ctc step from the same initialisation on the card and on
+    the CPU, on the card's first mel: the losses, and the updated weights
+    (Adam's first step moves each weight by about lr, so an element whose
+    tiny gradient changed sign moves the other way: the share of such
+    elements and the largest difference are read)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.align.ctc_aligner import CTCAligner
+    from prosody_control_french_tts_tpu_torch.align.train_ctc import load_pairs
+
+    lr = 3e-4
+    a, text = load_pairs(corpus)[0]
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        al = CTCAligner(device=device)
+        al.init_params(0)
+        step = al.make_train_step(lr=lr)
+        mel = al.features(a)
+        labels = al.vocab.encode(" ".join(text.split()))
+        out[name] = (float(step(mel, mel.shape[0] // 2, labels, len(labels))),
+                     {k: v.detach().cpu() for k, v in al.model.state_dict().items()})
+    rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    diffs = [(out["card"][1][k] - out["cpu"][1][k]).abs() for k in out["cpu"][1]]
+    worst = max(float(d.max()) for d in diffs)
+    flipped = sum(int((d > lr).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    if not (rel <= 1e-3 and worst <= 2.5 * lr and flipped <= 0.05):
+        raise SystemExit(f"train_ctc first step card vs CPU: loss rel {rel:.2e}, weights max |diff| {worst:.2e}, "
+                         f"share moved the other way {flipped:.4f}")
+    return dict(loss_card=out["card"][0], loss_cpu=out["cpu"][0], loss_rel=rel, weights_max_diff=worst,
+                share_flipped=flipped)
+
+
+def aligner_training_phase(card: str, lib, seed: int = 0) -> dict:
+    """Phase 22: the training halves of the aligners and the separator on the
+    card. ``train_ctc_aligner`` at the default geometry on a corpus of
+    synthetic French segments built by ``build_natural_corpus`` (ctc_loss
+    counted, every call held to the plain version, edge cases, timing),
+    ``pretrain_ctc.pretrain`` and ``pretrain_masknet`` as the recipes stand
+    (gates on), ``pretrain_whisper.pretrain`` cut to ``WHISPER_CUT`` (gates
+    printed). Every checkpoint goes to a temporary directory."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.align import pretrain_ctc, pretrain_whisper
+    from prosody_control_french_tts_tpu_torch.align.ctc_aligner import CTCAligner
+    from prosody_control_french_tts_tpu_torch.align.train_ctc import load_pairs, train_ctc_aligner
+    from prosody_control_french_tts_tpu_torch.audio import separate
+    from prosody_control_french_tts_tpu_torch.audio.corpus import build_natural_corpus
+    from prosody_control_french_tts_tpu_torch.audio.separate import pretrain_masknet
+    from prosody_control_french_tts_tpu_torch.ops import ctc_loss
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_sentence_voice(tmp / "data", "synth-fr", TRAIN_CTC_SEGMENTS, seed + 4242)
+        n_pairs = build_natural_corpus(tmp / "data", tmp / "corpus")
+        if n_pairs != TRAIN_CTC_SEGMENTS:
+            raise SystemExit(f"build_natural_corpus: {n_pairs} pairs for {TRAIN_CTC_SEGMENTS} segments")
+        seconds = sum(a.duration_seconds for a, _ in load_pairs(tmp / "corpus"))
+        ctc_loss.launches = 0
+        with CtcLossCapture() as cap, StepClock(CTCAligner, "make_train_step") as clock:
+            t0 = time.perf_counter()
+            al, losses = train_ctc_aligner(tmp / "corpus", tmp / "ctc.npz", epochs=TRAIN_CTC_EPOCHS, seed=seed)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        launches = ctc_loss.launches
+        steps = TRAIN_CTC_EPOCHS * TRAIN_CTC_SEGMENTS
+        if launches != 2 * steps or len(cap.calls) != steps:
+            raise SystemExit(f"train_ctc: {launches} ctc_loss launches and {len(cap.calls)} calls for {steps} steps")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"train_ctc: losses {losses}")
+        al2 = CTCAligner(weights_path=tmp / "ctc.npz")
+        a, text = load_pairs(tmp / "corpus")[0]
+        words = [iv.mark for iv in al2.align(a, text).tiers[0] if iv.mark.strip()]
+        if words != text.split():
+            raise SystemExit(f"train_ctc: the reloaded checkpoint aligned {len(words)} of {len(text.split())} words")
+        cvc = train_ctc_card_vs_cpu(tmp / "corpus", dev)
+        worst = [0.0, 0.0]
+        for lp, labels, inp, lab in cap.calls:
+            rel, gerr = check_ctc_loss(lp, labels, inp, lab, "captured train_ctc step")
+            worst = [max(worst[0], rel), max(worst[1], gerr)]
+        n_edge = ctc_loss_edge_cases(dev)
+        row = ctc_loss_row(cap.calls, launches, n_edge, card, lib)
+        row["max_abs_err"] = worst[1]
+        shapes = [(c[0].shape[0], 2 * len(c[1]) + 1) for c in cap.calls]
+        print(f"train_ctc (phase 22): {TRAIN_CTC_SEGMENTS} segments of synthetic sentences ({seconds:.1f} s), "
+              f"{TRAIN_CTC_EPOCHS} epochs at the default geometry: {train_s:.3f} s (features included), "
+              f"{clock.ms_per_step(TRAIN_CTC_SEGMENTS):.2f} ms a step after the first epoch ({clock.ms_per_step():.2f} "
+              f"with it: each new length's first convolutions and products are set up then; CUDA events), losses {[round(x, 3) for x in losses]}; ctc_loss launches "
+              f"{launches} = 2 x {steps} steps; [T, S] from {min(shapes)} to {max(shapes)}; held to plain: loss "
+              f"rel {worst[0]:.2e}, gradient {worst[1]:.2e} of its scale; the reloaded checkpoint aligned every "
+              f"word; first step card vs CPU: loss {cvc['loss_card']:.5f} vs {cvc['loss_cpu']:.5f} (rel "
+              f"{cvc['loss_rel']:.2e}), weights max |diff| {cvc['weights_max_diff']:.2e}, share moved the other "
+              f"way {cvc['share_flipped']:.5f}; card={card}")
+        row["train_ctc_ms_per_step"] = clock.ms_per_step(TRAIN_CTC_SEGMENTS)
+        out["ctc_loss_row"] = row
+
+        t0 = time.perf_counter()
+        with StepClock(pretrain_ctc, "_make_step") as clock:
+            al_c, err_ms = pretrain_ctc.pretrain(tmp / "ctc_fr_synth.npz", seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"pretrain_ctc (phase 22): 384 sentences, 12 epochs, B 8, gate on: wall {wall:.1f} s, "
+              f"{clock.steps} steps at {clock.ms_per_step():.2f} ms a step (CUDA events), held-out boundary error "
+              f"{err_ms:.2f} ms (gate 60); card={card}")
+        out["pretrain_ctc"] = dict(wall_s=wall, boundary_ms=err_ms, ms_per_step=clock.ms_per_step())
+
+        t0 = time.perf_counter()
+        with StepClock(separate, "_make_step") as clock:
+            sep, gain = pretrain_masknet(tmp / "masknet.npz", seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"pretrain_masknet (phase 22): 256 mixtures, 10 epochs, B 4, gates on: wall {wall:.1f} s, "
+              f"{clock.steps} steps at {clock.ms_per_step():.2f} ms a step (CUDA events), losses "
+              f"{[round(x, 5) for x in sep.losses]}, held-out SI-SNR gain {gain:.2f} dB (gate 5); real-mixture gate "
+              f"{'ran: %.2f dB' % sep.real_gain if np.isfinite(sep.real_gain) else 'did not run (no real corpus)'}; "
+              f"card={card}")
+        out["pretrain_masknet"] = dict(wall_s=wall, si_snr_gain_db=gain, real_gain_db=sep.real_gain,
+                                       ms_per_step=clock.ms_per_step())
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with StepClock(pretrain_whisper, "_make_step") as clock:
+            al_w, err_w, acc_w = pretrain_whisper.pretrain(tmp / "whisper", seed=seed,
+                                                          target_boundary_ms=float("inf"), target_word_acc=0.0,
+                                                          target_formant_word_acc=0.0, **WHISPER_CUT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"pretrain_whisper (phase 22, cut to {WHISPER_CUT['n_sentences']} sentences, {WHISPER_CUT['epochs']} "
+              f"epochs, B 16, synth_fr_config): wall {wall:.1f} s, {clock.steps} steps at {clock.ms_per_step():.2f} "
+              f"ms a step (CUDA events), peak device memory {peak:.2f} GiB, epochs (ce, att) "
+              f"{[(round(c, 4), round(a_, 4)) for c, a_ in al_w.history]}; gates read, not asserted: {al_w.gates}; "
+              f"card={card}")
+        out["pretrain_whisper_cut"] = dict(wall_s=wall, peak_gib=peak, history=al_w.history, gates=al_w.gates,
+                                           ms_per_step=clock.ms_per_step())
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 22 took {phase_s:.1f} s; card={card}")
+    out["phase_s"] = phase_s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3709,6 +4138,9 @@ def main() -> int:
 
     # -- 20. the break-predictor serving path ---------------------------------
     break_tagger_phase(card, args.seed, mv["bdd_json"])
+
+    # -- 22. the training halves of the aligners and the separator -------------
+    rows_out.append(aligner_training_phase(card, lib, args.seed)["ctc_loss_row"])
 
     print(f"measure step (warm): wall {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s; card={card}")
     print("phases warm: " + json.dumps({k2: round(v, 4) for k2, v in sorted(warm_phases.items())}))

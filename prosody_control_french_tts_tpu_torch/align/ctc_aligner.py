@@ -13,8 +13,17 @@ attention's softmax too, as flax's ``MultiHeadDotProductAttention`` with
 ``dtype=bfloat16`` computes it), the LayerNorms and the output layer in
 float32. The packaged checkpoint (``pretrained/ctc_fr_synth.npz``, a copy of
 the JAX package's, pretrained on compositional synthetic French speech)
-loads through ``convert.ctc_params_from_jax``. Training (``make_train_step``,
-``save_params``, the CTC loss) comes with the training slice.
+loads through ``convert.ctc_params_from_jax``.
+
+Training: ``CTCAligner.init_params`` draws flax's default initialisation
+from a ``torch.Generator`` into float32 master weights
+(``models.layers.master_weights``), ``make_train_step`` is the JAX step
+(Adam on ``ctc_loss(log_softmax(model(mel)))``, one unbatched utterance, no
+attention mask; ``ctc_loss`` is the CUDA kernel pair ``csrc/ctc_loss.cu`` on
+the card), and ``save_params`` writes the JAX layout ('/'-joined flax keys
+in an ``.npz``, read back by either package's ``load_params``). The encoder
+takes one sequence [T, M] or a batch [B, T, M], as the flax module
+broadcasts over leading dimensions.
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..convert import ctc_params_from_jax
-from ..models.layers import Dense, LayerNorm, gelu_tanh_bf16
+from ..convert import ctc_params_from_jax, ctc_params_to_jax
+from ..models.layers import Dense, LayerNorm, embed_normal, gelu_tanh_bf16, lecun_normal, master_weights
+from ..ops.ctc_loss import ctc_loss
 from ..ops.kernels import dsp_precision, resolve_device
 from ..ops.stft import log_mel
 from ..utils.textgridio import TextGrid
@@ -70,26 +80,51 @@ class CharVocab:
         return labels, spans
 
 
-def load_params(path: str | Path) -> dict:
-    """``.npz`` of '/'-joined flax paths → nested dict of numpy arrays;
-    floating leaves upcast to float32 (checkpoints may be stored float16)."""
-    data = np.load(path)
+def _flat_keys(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        out.update(_flat_keys(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def save_params(params: dict, path: str | Path) -> None:
+    """A flax tree of arrays (nested, or flat with '/'-joined keys) →
+    ``.npz`` of '/'-joined keys in sorted order, as the JAX package's
+    ``save_params`` writes it (leaves keep their dtype)."""
+    flat = _flat_keys(params)
+    np.savez(path, **{k: np.asarray(flat[k]) for k in sorted(flat)})
+
+
+def nest(flat: dict) -> dict:
+    """'/'-joined keys → the nested tree (``load_params``' layout)."""
     tree: dict = {}
-    for key in data.files:
+    for key, v in flat.items():
         parts = key.split("/")
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        v = data[key]
-        if np.issubdtype(v.dtype, np.floating):
-            v = v.astype(np.float32)
         node[parts[-1]] = v
     return tree
 
 
+def half_tree(params: dict) -> dict:
+    """Floating leaves cast to float16: the packaged checkpoints' storage."""
+    return {k: (np.asarray(v, np.float16) if np.issubdtype(np.asarray(v).dtype, np.floating) else np.asarray(v))
+            for k, v in _flat_keys(params).items()}
+
+
+def load_params(path: str | Path) -> dict:
+    """``.npz`` of '/'-joined flax paths → nested dict of numpy arrays;
+    floating leaves upcast to float32 (checkpoints may be stored float16)."""
+    data = np.load(path)
+    return nest({k: (data[k].astype(np.float32) if np.issubdtype(data[k].dtype, np.floating) else data[k])
+                 for k in data.files})
+
+
 class Conv(nn.Module):
     """flax ``Conv(dim, (k,), strides=(stride,), padding="SAME",
-    dtype=bfloat16)`` over frames [T, C] → [ceil(T / stride), dim]
+    dtype=bfloat16)`` over frames [..., T, C] → [..., ceil(T / stride), dim]
     bfloat16 (SAME puts the odd pad frame at the end)."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 3, stride: int = 1):
@@ -99,10 +134,11 @@ class Conv(nn.Module):
         self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s, T = self.weight.shape[-1], self.stride, x.shape[-2]
+        k, s, (T, C) = self.weight.shape[-1], self.stride, x.shape[-2:]
         total = max((-(-T // s) - 1) * s + k - T, 0)
-        xt = F.pad(x.to(BF16).T, (total // 2, total - total // 2))
-        return F.conv1d(xt[None], self.weight, stride=s)[0].T + self.bias
+        xt = F.pad(x.to(BF16).reshape(-1, T, C).transpose(1, 2), (total // 2, total - total // 2))
+        y = F.conv1d(xt, self.weight.to(BF16), stride=s).transpose(1, 2) + self.bias.to(BF16)
+        return y.reshape(*x.shape[:-2], *y.shape[-2:])
 
 
 class _SelfAttention(nn.Module):
@@ -120,20 +156,20 @@ class _SelfAttention(nn.Module):
         self.out = Dense(dim, dim)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:
-        T, dim = x.shape
+        *lead, T, dim = x.shape
         hd = dim // self.heads
 
-        def split(t):  # [T, dim] -> [heads, T, hd]
-            return t.reshape(T, self.heads, hd).transpose(0, 1)
+        def split(t):  # [..., T, dim] -> [..., heads, T, hd]
+            return t.reshape(*lead, T, self.heads, hd).transpose(-3, -2)
 
         q = split(self.query(x)) / torch.tensor(float(np.float32(np.sqrt(hd))), dtype=BF16, device=x.device)
         k, v = split(self.key(x)), split(self.value(x))
-        att = torch.matmul(q, k.transpose(-1, -2))  # [heads, T, T] bfloat16
+        att = torch.matmul(q, k.transpose(-1, -2))  # [..., heads, T, T] bfloat16
         if key_mask is not None:
-            att = torch.where(key_mask[None, None, :], att, torch.finfo(BF16).min)
+            att = torch.where(key_mask, att, torch.finfo(BF16).min)  # key_mask [T] masks the keys
         u = torch.exp(att - att.amax(-1, keepdim=True))
         w = u / u.float().sum(-1, keepdim=True).to(BF16)
-        o = torch.matmul(w, v).transpose(0, 1).reshape(T, dim)
+        o = torch.matmul(w, v).transpose(-3, -2).reshape(*lead, T, dim)
         return self.out(o)
 
 
@@ -152,12 +188,12 @@ class _Layer(nn.Module):
 
 
 class CTCEncoder(nn.Module):
-    """log-mel [T, M] → frame char logits [ceil(T/2), V] float32: 2×conv
-    (stride 2 on the second) + transformer layers."""
+    """log-mel [..., T, M] → frame char logits [..., ceil(T/2), V] float32:
+    2×conv (stride 2 on the second) + transformer layers."""
 
     def __init__(self, vocab_size: int, dim: int = 128, layers: int = 2, heads: int = 4, n_mels: int = 80):
         super().__init__()
-        self.dim, self.n_layers = dim, layers
+        self.dim, self.n_layers, self.heads = dim, layers, heads
         self.conv0 = Conv(n_mels, dim)
         self.conv1 = Conv(dim, dim, stride=2)
         self.pos_emb = nn.Parameter(torch.zeros(4096, dim, dtype=BF16), requires_grad=False)
@@ -173,11 +209,34 @@ class CTCEncoder(nn.Module):
         x = gelu_tanh_bf16(self.conv1(x))
         T = x.shape[-2]
         idx = torch.arange(T, device=x.device)
-        x = x + self.pos_emb[idx % 4096]
+        x = x + self.pos_emb[idx % 4096].to(BF16)
         key_mask = None if n_valid is None else idx < int(n_valid)
         for layer in self.layers:
             x = layer(x, key_mask)
         return self.head(self.ln_f(x))
+
+
+def init_ctc_encoder(model: CTCEncoder, seed: int) -> None:
+    """flax's default initialisation of ``CTCEncoder``, drawn in module
+    order on the CPU from a generator seeded with ``seed`` (the flax key's
+    numbers differ: the parity tests load the converted flax initialisation
+    instead): lecun-normal kernels (fan-in k·in for the convolutions),
+    zero biases, unit LayerNorm scales, N(0, 1/dim) positions."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv):
+                c_out, c_in, k = m.weight.shape
+                m.weight.copy_(lecun_normal(k * c_in, (k, c_in, c_out), g).permute(2, 1, 0))
+                m.bias.zero_()
+            elif isinstance(m, Dense):
+                m.kernel.copy_(lecun_normal(m.kernel.shape[0], m.kernel.shape, g))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+        model.pos_emb.copy_(embed_normal(model.pos_emb.shape, g))
 
 
 class CTCAligner:
@@ -216,6 +275,22 @@ class CTCAligner:
         if params is not None:
             self.model.load_state_dict(ctc_params_from_jax(params))
         self.model.to(self.device).eval()
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Float32 master weights with flax's default initialisation
+        (``init_ctc_encoder``) on the aligner's device; returns (and keeps
+        as ``params``) the flax tree of numpy arrays."""
+        self.model.cpu()
+        master_weights(self.model)
+        init_ctc_encoder(self.model, seed)
+        self.model.to(self.device)
+        self.params = self.flax_params()
+        return self.params
+
+    def flax_params(self) -> dict:
+        """The encoder's weights as the JAX package's tree (nested, under
+        ``params``, float32 numpy)."""
+        return nest(ctc_params_to_jax(self.model.state_dict(), heads=self.model.heads))
 
     # -- feature extraction -------------------------------------------------
     def _samples(self, audio: Audio) -> tuple[Audio, np.ndarray]:
@@ -366,3 +441,26 @@ class CTCAligner:
                 out.append(self.vocab.chars[i - 1])
             prev = i
         return "".join(out).strip()
+
+    # -- training ----------------------------------------------------------
+    def make_train_step(self, lr: float = 3e-4):
+        """The JAX package's train step: Adam (``torch.optim.Adam``, b1 0.9,
+        b2 0.999, eps 1e-8 outside the square root, as ``optax.adam``) on
+        ``ctc_loss(log_softmax(model(mel)))`` of one utterance, the encoder
+        applied with no attention mask. The encoder becomes float32 master
+        weights. Returns ``step(mel [T, M], mel_len, labels, label_len) ->
+        loss`` (a 0-d tensor on the device); ``mel_len`` counts encoder
+        frames, and the labels are read on the host."""
+        master_weights(self.model).train()
+        opt = torch.optim.Adam(self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        blank = self.vocab.blank
+
+        def step(mel: torch.Tensor, mel_len: int, labels, label_len: int) -> torch.Tensor:
+            opt.zero_grad(set_to_none=True)
+            logp = torch.log_softmax(self.model(mel), dim=-1)
+            loss = ctc_loss(logp, labels, mel_len, label_len, blank=blank)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step

@@ -25,8 +25,14 @@ reference's primary aligner, the whisper-timestamped stack
   scale or silence ratio > 95 % → the "..." placeholder).
 
 Everything here is plain PyTorch on the aligner's device: in the JAX
-package it is XLA code, no Pallas kernel. Training (``pretrain_whisper``)
-is not ported yet.
+package it is XLA code, no Pallas kernel. For training
+(``align.pretrain_whisper``), ``init_whisper`` draws flax's default
+initialisation from a ``torch.Generator`` into float32 master weights
+(``models.layers.master_weights``; the layers cast them in the forward),
+the teacher-forced forward returns every layer's cross-attention weights
+with their gradient, and ``WhisperAligner.save_pretrained`` writes a
+checkpoint directory in the JAX layout (``config.json``, ``weights.npz``,
+the tokenizer).
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..convert import whisper_params_from_jax
-from ..models.layers import Dense, LayerNorm, gelu_erf_bf16
+from ..convert import whisper_params_from_jax, whisper_params_to_jax
+from ..models.layers import Dense, LayerNorm, embed_normal, gelu_erf_bf16, lecun_normal, master_weights
 from ..ops.dtw import monotonic_partition_backtrack, monotonic_partition_costs, monotonic_partition_spans_batched
 from ..ops.kernels import dsp_precision, resolve_device
 from ..ops.stft import log_mel
@@ -198,8 +204,8 @@ class _Conv(nn.Module):
         self.stride = stride
 
     def forward(self, x):
-        y = F.conv1d(x.to(BF16).transpose(1, 2), self.weight, stride=self.stride, padding=1)
-        return y.transpose(1, 2) + self.bias
+        y = F.conv1d(x.to(BF16).transpose(1, 2), self.weight.to(BF16), stride=self.stride, padding=1)
+        return y.transpose(1, 2) + self.bias.to(BF16)
 
 
 class WhisperEncoder(nn.Module):
@@ -290,6 +296,33 @@ class WhisperModel(nn.Module):
 
     def decode_step(self, tokens, pos, caches, cross_kvs):
         return self.decoder.step(tokens, pos, caches, cross_kvs)
+
+
+def init_whisper(model: WhisperModel, seed: int) -> None:
+    """flax's default initialisation of ``WhisperModel``, drawn in module
+    order on the CPU from a generator seeded with ``seed`` (the flax key's
+    numbers differ: the parity tests load the converted flax initialisation
+    instead): lecun-normal kernels (fan-in 3·in for the convolutions, the
+    flattened input axes for the attention's projections), zero biases,
+    unit LayerNorm scales, N(0, 1/dim) token embeddings and N(0, 0.01²)
+    decoder positions."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, _Conv):
+                c_out, c_in, k = m.weight.shape
+                m.weight.copy_(lecun_normal(k * c_in, (k, c_in, c_out), g).permute(2, 1, 0))
+                m.bias.zero_()
+            elif isinstance(m, Dense):
+                m.kernel.copy_(lecun_normal(m.kernel.shape[0], m.kernel.shape, g))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, WhisperDecoder):
+                m.tok_emb.embedding.copy_(embed_normal(m.tok_emb.embedding.shape, g))
+                m.pos_emb.copy_(torch.randn(m.pos_emb.shape, generator=g) * 0.01)
 
 
 SPACE = 0x20
@@ -674,6 +707,44 @@ class WhisperAligner:
         p = Path(path)
         cfg = WhisperConfig.from_json(p / "config.json") if (p / "config.json").exists() else WhisperConfig.base()
         return cls(cfg, params=load_params(p / "weights.npz"), tokenizer=load_whisper_tokenizer(p), **kwargs)
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Float32 master weights with flax's default initialisation
+        (``init_whisper``) on the aligner's device; returns (and keeps as
+        ``params``) the flax tree of numpy arrays."""
+        from .ctc_aligner import nest
+
+        self.model.cpu()
+        master_weights(self.model)
+        init_whisper(self.model, seed)
+        self.model.to(self.device)
+        self.params = nest(whisper_params_to_jax(self.model.state_dict(), self.cfg.heads))
+        return self.params
+
+    def load_params(self, params: dict) -> None:
+        """Keep ``params`` (a flax tree) and load it into the model, whose
+        parameters keep their storage type."""
+        self.params = params
+        self.model.load_state_dict(whisper_params_from_jax(params), strict=True)
+
+    def save_pretrained(self, path) -> None:
+        """A checkpoint directory the JAX package's ``from_pretrained`` (and
+        this one) loads: ``config.json`` (the geometry), ``weights.npz``
+        (``params`` as they are, '/'-joined flax keys) and the tokenizer."""
+        import dataclasses
+
+        from .ctc_aligner import save_params
+
+        p = Path(path)
+        p.mkdir(parents=True, exist_ok=True)
+        d = dataclasses.asdict(self.cfg)
+        d.pop("dtype", None)
+        (p / "config.json").write_text(json.dumps(d), encoding="utf-8")
+        save_params(self.params, p / "weights.npz")
+        if hasattr(self.tokenizer, "specials"):  # ByteLevelBPE artifact
+            self.tokenizer.save(p / "tokenizer.bpe.json")
+        elif hasattr(self.tokenizer, "save"):  # WordPiece vocab json
+            self.tokenizer.save(p / "wordpiece_vocab.json")
 
     def _byte_level_tokenizer(self) -> bool:
         tok = self.tokenizer

@@ -14,7 +14,9 @@ is copied and none is transposed; a leaf the port does not know raises.
 
 The packaged checkpoints cross as ``.npz`` → ``state_dict`` converters:
 ``masknet_params_from_jax`` for the separator, ``ctc_params_from_jax`` and
-``whisper_params_from_jax`` for the acoustic aligners,
+``whisper_params_from_jax`` for the acoustic aligners (``masknet_params_to_jax``,
+``ctc_params_to_jax`` and ``whisper_params_to_jax`` are the ways back, which
+the trainers and checkpoint writers use),
 ``bert_params_from_jax`` and ``bilstm_params_from_jax`` for the break and
 prosody predictors (``bert_params_to_jax`` is the way back: the flat
 ``a/b/c``-keyed npz the JAX package's checkpoints use), and
@@ -272,6 +274,61 @@ def ctc_params_from_jax(tree: dict) -> dict:
     return out
 
 
+def _to_jax_leaf(kind: str, leaf: str, v: torch.Tensor, heads: int) -> np.ndarray:
+    """One port tensor → its flax layout (the inverse of ``_aligner_leaf``)."""
+    a = v.detach().to("cpu", torch.float32).numpy()
+    if kind == "conv" and leaf == "kernel":
+        a = a.transpose(2, 1, 0)
+    elif kind == "dense_in" and leaf == "kernel":  # [dim, heads·hd] → [dim, heads, hd]
+        a = a.reshape(a.shape[0], heads, -1)
+    elif kind == "dense_in" and leaf == "bias":  # [heads·hd] → [heads, hd]
+        a = a.reshape(heads, -1)
+    elif kind == "dense_out" and leaf == "kernel":  # [heads·hd, dim] → [heads, hd, dim]
+        a = a.reshape(heads, -1, a.shape[-1])
+    return np.ascontiguousarray(a)
+
+
+def _put_jax(out: dict, name: str, key: str, a: np.ndarray, who: str) -> None:
+    if "params/" + name in out:
+        raise ValueError(f"{who}: {key!r} maps onto {name!r} twice")
+    out["params/" + name] = a
+
+
+_CTC_PORT = re.compile(r"(conv[01])\.(weight|bias)$|pos_emb$|layers\.(\d+)\.(?:attn\.(query|key|value|out)|(ln1|ln2|fc1|fc2))"
+                       r"\.(kernel|bias|scale)$|(ln_f|head)\.(kernel|bias|scale)$")
+
+
+def ctc_params_to_jax(state: dict, heads: int) -> dict:
+    """The inverse of ``ctc_params_from_jax``: a port ``CTCEncoder``
+    ``state_dict`` → ``{"params/a/b/c": float32 array}`` in the flax layout
+    (``heads``: the attention's, for the DenseGeneral kernels). An unknown
+    or repeated tensor raises."""
+    who = "ctc_params_to_jax"
+    n = 1 + max((int(m.group(3)) for m in map(_CTC_PORT.match, state) if m and m.group(3)), default=-1)
+    out = {}
+    for key, val in state.items():
+        m = _CTC_PORT.match(key)
+        if m is None:
+            raise ValueError(f"{who}: unknown tensor {key!r}")
+        conv, cleaf, i, proj, sub, leaf, top, tleaf = m.groups()
+        if conv is not None:
+            name, kind, leaf = f"Conv_{conv[-1]}/{'kernel' if cleaf == 'weight' else 'bias'}", "conv", (
+                "kernel" if cleaf == "weight" else "bias")
+        elif key == "pos_emb":
+            name, kind, leaf = "Embed_0/embedding", "embed", "embedding"
+        elif proj is not None:
+            j = {"query": "query", "key": "key", "value": "value", "out": "out"}[proj]
+            name, kind = f"MultiHeadDotProductAttention_{i}/{j}/{leaf}", ("dense_out" if proj == "out" else "dense_in")
+        elif sub is not None:
+            k = 2 * int(i) + (0 if sub in ("ln1", "fc1") else 1)
+            name, kind = (f"LayerNorm_{k}/{leaf}", "norm") if sub.startswith("ln") else (f"Dense_{k}/{leaf}", "dense")
+        else:
+            leaf = tleaf
+            name, kind = (f"LayerNorm_{2 * n}/{leaf}", "norm") if top == "ln_f" else (f"Dense_{2 * n}/{leaf}", "dense")
+        _put_jax(out, name, key, _to_jax_leaf(kind, leaf, val, heads), who)
+    return out
+
+
 _WHISPER_LEAF = re.compile(
     r"(encoder|decoder)/(?:block_(\d+)/)?"
     r"(conv1|conv2|ln_post|ln_attn|ln_cross|ln_ffn|fc1|fc2|attn|cross|tok_emb)/"
@@ -318,6 +375,71 @@ def whisper_params_from_jax(tree: dict) -> dict:
             conv, leaf_name = ("dense_out" if proj == "out" else "dense_in" if proj else "dense"), leaf
         path = [part] + ([f"blocks.{blk}"] if blk is not None else []) + [layer] + ([proj] if proj else []) + [leaf_name]
         _put(out, ".".join(path), key, _aligner_leaf(key, conv, leaf, val), who)
+    return out
+
+
+_WHISPER_PORT = re.compile(
+    r"(encoder|decoder)\.(?:blocks\.(\d+)\.)?"
+    r"(conv1|conv2|ln_post|ln_attn|ln_cross|ln_ffn|fc1|fc2|attn|cross|tok_emb)\."
+    r"(?:(q|k|v|out)\.)?(kernel|bias|scale|weight|embedding)$"
+)
+
+
+def whisper_params_to_jax(state: dict, heads: int) -> dict:
+    """The inverse of ``whisper_params_from_jax``: a port ``WhisperModel``
+    ``state_dict`` → ``{"params/a/b/c": float32 array}`` in the flax layout
+    (``heads``: the config's). An unknown or repeated tensor raises."""
+    who = "whisper_params_to_jax"
+    out = {}
+    for key, val in state.items():
+        if key == "decoder.pos_emb":
+            _put_jax(out, "decoder/pos_emb", key, val.detach().to("cpu", torch.float32).numpy().copy(), who)
+            continue
+        m = _WHISPER_PORT.match(key)
+        if m is None:
+            raise ValueError(f"{who}: unknown tensor {key!r}")
+        part, blk, layer, proj, leaf = m.groups()
+        if layer in ("conv1", "conv2"):
+            kind, leaf = "conv", ("kernel" if leaf == "weight" else leaf)
+        elif layer == "tok_emb":
+            kind = "embed"
+        elif layer.startswith("ln_"):
+            kind = "norm"
+        else:
+            kind = ("dense_out" if proj == "out" else "dense_in") if proj else "dense"
+        path = [part] + ([f"block_{blk}"] if blk is not None else []) + [layer] + ([proj] if proj else []) + [leaf]
+        _put_jax(out, "/".join(path), key, _to_jax_leaf(kind, leaf, val, heads), who)
+    return out
+
+
+_MASKNET_PORT = re.compile(r"(conv_in|convs\.(\d+)|norms\.(\d+)|norm_out|dense)\.(weight|bias)$")
+
+
+def masknet_params_to_jax(state: dict) -> dict:
+    """The inverse of ``masknet_params_from_jax``: a port ``MaskNet``
+    ``state_dict`` → ``{"params/a/b": float32 array}`` in the flax layout
+    (conv kernels ``[out, in, k]`` → ``[k, in, out]``, the dense weight
+    ``[out, in]`` → ``[in, out]``). An unknown or repeated tensor raises."""
+    who = "masknet_params_to_jax"
+    n_norms = sum(1 for k in state if re.match(r"norms\.\d+\.weight$", k))
+    out = {}
+    for key, val in state.items():
+        m = _MASKNET_PORT.match(key)
+        if m is None:
+            raise ValueError(f"{who}: unknown tensor {key!r}")
+        mod, ci, ni, leaf = m.groups()
+        a = val.detach().to("cpu", torch.float32).numpy()
+        if mod == "conv_in" or ci is not None:
+            i = 0 if mod == "conv_in" else int(ci) + 1
+            name = f"Conv_{i}/{'kernel' if leaf == 'weight' else 'bias'}"
+            a = a.transpose(2, 1, 0) if leaf == "weight" else a
+        elif ni is not None or mod == "norm_out":
+            i = n_norms if mod == "norm_out" else int(ni)
+            name = f"LayerNorm_{i}/{'scale' if leaf == 'weight' else 'bias'}"
+        else:
+            name = f"Dense_0/{'kernel' if leaf == 'weight' else 'bias'}"
+            a = a.T if leaf == "weight" else a
+        _put_jax(out, name, key, np.ascontiguousarray(a), who)
     return out
 
 

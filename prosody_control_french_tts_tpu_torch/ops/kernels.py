@@ -12,7 +12,7 @@ parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
 ``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn``, ``ops.fused_ce``,
-``ops.frames``, ``ops.chunk_cumsum``, ``ops.flash_attention``, ``ops.mask_ema`` and ``ops.ctc_viterbi`` take their
+``ops.frames``, ``ops.chunk_cumsum``, ``ops.flash_attention``, ``ops.mask_ema``, ``ops.ctc_viterbi`` and ``ops.ctc_loss`` take their
 plain PyTorch versions only for tensors on the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 SOURCES = (
     "pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu",
-    "frames.cu", "chunk_cumsum.cu", "flash_attention.cu", "mask_ema.cu", "ctc_viterbi.cu",
+    "frames.cu", "chunk_cumsum.cu", "flash_attention.cu", "mask_ema.cu", "ctc_viterbi.cu", "ctc_loss.cu",
 )
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
@@ -100,6 +100,19 @@ _SIGNATURES = {
     "ctc_viterbi_tile_frames": (_I,),
     # T, S, states a thread, blocks -> 32-bit words of a sequence's packed pointers (returns a 64-bit int)
     "ctc_viterbi_back_words": (_I, _I, _I, _I),
+    # log_probs, ext, skip, alpha, loss, T, S, V, frames advanced, label_len, stream
+    "ctc_loss_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    # alpha, skip, col_ptr, col_states, grad_out, de (scratch [Tv, S]), dlogp, T, S, V, frames advanced, label_len,
+    # stream
+    "ctc_loss_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    # () -> states the kernels take at most
+    "ctc_loss_max_states": (),
+    # S, V -> bytes of dynamic shared memory of the backward (returns a 64-bit int)
+    "ctc_loss_bwd_smem_bytes": (_I, _I),
+    # S -> states a thread (0: more than the kernels take)
+    "ctc_loss_states_per_thread": (_I,),
+    # out, steps, stream: one state's forward step as a dependent chain in one thread
+    "ctc_loss_latency_probe": (_VP, _I, _VP),
     # q, k, v, o, l, m, plan, n_plan, B, H, KVH, L, hd, strides (12 int64, host), scale, dtype, stream
     "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
     # q, k, v, o, do, l, m, di, lse2, dk_part, dv_part, dq, dk, dv, plan_q, plan_k, n_plan, B, H, KVH, L, hd,
@@ -111,7 +124,7 @@ _SIGNATURES = {
 }
 
 
-_RESTYPES = {"ctc_viterbi_back_words": ctypes.c_longlong}  # every other function returns an int
+_RESTYPES = {"ctc_viterbi_back_words": ctypes.c_longlong, "ctc_loss_bwd_smem_bytes": ctypes.c_longlong}  # every other function returns an int
 
 
 def resolve_device(device) -> torch.device:

@@ -34,7 +34,9 @@ def test_importing_every_module_loads_no_jax():
                  "models.fewshot", "models.experiment", "models.report_html", "serving.batcher", "serving.predictor",
                  "models.pos_data", "models.pos_tagger", "eval.yin", "eval.metrics", "eval.evaluate_voice",
                  "eval.corpus_compare", "eval.dataset_stats", "eval.abtest", "eval.aligner_harness",
-                 "eval.real_audio_agreement", "align.needleman_wunsch", "align.levenshtein_merge"):
+                 "eval.real_audio_agreement", "align.needleman_wunsch", "align.levenshtein_merge", "ops.ctc_loss",
+                 "align.train_ctc", "align.pretrain_ctc", "align.pretrain_whisper", "audio.corpus", "audio.convert",
+                 "models.schedules"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -225,6 +227,30 @@ def test_acoustic_aligners_default_to_cuda():
     assert states.device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         ctc_viterbi.ctc_forced_align(torch.zeros((3, 4), device="meta"), torch.tensor([1]), 3, 1)
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """The aligners' and the separator's training recipes default to CUDA and
+    raise without a card before any work; the CTC loss takes its plain
+    version for CPU tensors only."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    from prosody_control_french_tts_tpu_torch.align import pretrain_ctc, pretrain_whisper
+    from prosody_control_french_tts_tpu_torch.align.train_ctc import train_ctc_aligner
+    from prosody_control_french_tts_tpu_torch.audio.separate import pretrain_masknet
+    from prosody_control_french_tts_tpu_torch.ops import ctc_loss
+
+    for call in (lambda: train_ctc_aligner(tmp_path, tmp_path / "w.npz"),
+                 lambda: pretrain_ctc.pretrain(tmp_path / "c.npz"),
+                 lambda: pretrain_whisper.pretrain(tmp_path / "w"),
+                 lambda: pretrain_masknet(tmp_path / "m.npz")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not any(tmp_path.iterdir())
+    loss = ctc_loss.ctc_loss(torch.zeros((3, 4)), torch.tensor([1]), 3, 1)
+    assert loss.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc_loss.ctc_loss(torch.zeros((3, 4), device="meta"), torch.tensor([1]), 3, 1)
 
 
 def test_break_predictor_entry_points_default_to_cuda():

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from prosody_control_french_tts_tpu_torch.ops import (
-    candidates, chunk_cumsum, ctc_viterbi, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
+    candidates, chunk_cumsum, ctc_loss, ctc_viterbi, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
 )
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
@@ -1191,3 +1191,67 @@ def test_ctc_viterbi_kernel_batch_and_checks(cuda):
         ctc_viterbi.ctc_viterbi(lp_b[:1].double(), ext[None], skip[None], in_lens[:1], lab_lens[:1])
     with pytest.raises(ValueError, match="CUDA"):
         ctc_viterbi.ctc_viterbi(lp[None], ext[None], skip[None], in_lens[:1], lab_lens[:1])
+
+
+# ctc_loss: (T, V, L, input_len, label_len, labels or None). Random feasible
+# inputs at train_ctc's 20 s cap (1,000 frames, S 601) and padded, label_len 0
+# and 1, repeated labels, an infeasible alignment, one frame, and S at each
+# states-a-thread count up to the kernel's limit (4,095).
+CTC_LOSS_CASES = [
+    (50, 10, 8, 50, 8, None),
+    (200, 47, 60, 180, 55, None),
+    (1000, 47, 300, 1000, 300, None),
+    (1000, 47, 300, 700, 250, None),
+    (40, 10, 5, 40, 0, None),
+    (40, 10, 5, 40, 1, None),
+    (30, 5, 6, 30, 6, [1, 1, 2, 2, 1, 1]),
+    (10, 10, 15, 10, 15, None),
+    (9, 6, 3, 1, 2, None),
+    (1100, 48, 512, 1100, 512, None),
+    (2200, 48, 1024, 2200, 1024, None),
+    (4200, 48, 2047, 4200, 2047, None),
+]
+
+
+def _ctc_loss_inputs(T, V, L, seed, labels=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, V)).astype(np.float32) * 3.0
+    lp = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    lab = np.asarray(labels, np.int64) if labels is not None else rng.integers(1, V, L)
+    return torch.from_numpy(lp.astype(np.float32)), torch.from_numpy(lab)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CTC_LOSS_CASES, ids=lambda c: f"T{c[0]}-V{c[1]}-L{c[2]}-in{c[3]}-lab{c[4]}")
+def test_ctc_loss_kernel_matches_plain(cuda, case):
+    """Loss within 1e-5 relative, d loss / d log_probs within 1e-5 · max(1,
+    loss / 100) absolute, or 1e-5 of its largest entry on an infeasible
+    alignment (the same float32 recursion; exp and log1p may differ in the
+    last bit, and the rounding of α grows with its size, about the loss),
+    two launches a call."""
+    T, V, L, inp, lab, labels = case
+    lp, labels = _ctc_loss_inputs(T, V, L, T + L, labels)
+    want_lp = lp.to(cuda).requires_grad_(True)
+    want = ctc_loss.ctc_loss_plain(want_lp, labels.to(cuda), inp, lab)
+    want.backward()
+    got_lp = lp.to(cuda).requires_grad_(True)
+    n0 = ctc_loss.launches
+    got = ctc_loss.ctc_loss(got_lp, labels, inp, lab)
+    got.backward()
+    torch.cuda.synchronize()
+    assert ctc_loss.launches == n0 + 2
+    w, g = float(want), float(got)
+    assert abs(g - w) <= 1e-5 * abs(w), (g, w)
+    scale = max(1.0, float(want_lp.grad.abs().max())) if w > 1e29 else max(1.0, abs(w) / 100.0)
+    assert float((got_lp.grad - want_lp.grad).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_ctc_loss_kernel_refuses_past_its_states(cuda):
+    lp, labels = _ctc_loss_inputs(4200, 48, 2048, 0)
+    n0 = ctc_loss.launches
+    with pytest.raises(ValueError, match="4096"):
+        ctc_loss.ctc_loss(lp.to(cuda), labels, 4200, 2048)
+    with pytest.raises(ValueError, match="outside"):
+        ctc_loss.ctc_loss(lp[:, :10].contiguous().to(cuda), labels[:5] + 20, 4200, 5)
+    assert ctc_loss.launches == n0
