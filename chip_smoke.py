@@ -226,9 +226,37 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     recipe's ms a step by CUDA events; every checkpoint in a temporary
     directory.
 
+23. (run last) the umbrella command line, ``python -m
+    prosody_control_french_tts_tpu_torch <command>`` called in this process
+    (``__main__.main``), and the host front ends it reaches: ``run`` on
+    phase 2's 10-segment voice laid out with its TextGrids (precomputed
+    aligner, fake TTS; warm, A and B once each), ``legacy`` on the same voice
+    with its raw renderings and their TextGrids (A and B once per pitch
+    track: the BDD2 stage's (wav, floor) tracks), a 2-segment voice through
+    ``legacy`` on the card and the CPU (adjustments 0.05 points), ``sync``,
+    ``corpus``, ``analyze`` and ``abtest`` on the run's output; the viewer
+    (``VizService`` over the run's natural and raw segments, served on an
+    ephemeral port, preloaded by four threads: A and B once per plot), its
+    routes, one plot card vs CPU (the unrounded spectrogram's amplitude 1e-5 of the
+    peak and dB 1e-3 within 40 dB of it, F0 1 %) and
+    ``device_trace`` around one plot (the Chrome trace names A's and B's
+    kernels); ``train_stage(ckpt_dir=...)`` on the card, 3 epochs, keep 2,
+    the newest checkpoint restored bit-equal into a fresh model that
+    generates the same text; ``praat_pitch`` with ``sinc_refine_steps=2`` on
+    the card and the CPU; then the HF converters at published widths with
+    weights drawn on the card under HF's names: Qwen2.5-7B's geometry in
+    bfloat16 through ``qwen2_to_torch`` (float32, then cast to bfloat16)
+    and the fused serving tree to 8
+    greedy tokens (kernel F: 28 x 7 launches), and whisper-base's through
+    ``whisper_to_torch`` into ``WhisperAligner`` (a 30 s window encoded, 4
+    greedy tokens, timed after 4 of warm-up, equal to the teacher-forced
+    argmax). Alone:
+    ``tools/cli_phase.py``.
+
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fifteen entries (mask_ema, ctc_viterbi and
-ctc_loss, which replace no TPU kernel, among them), and last ``{"ok": true,
+ctc_loss, which replace no TPU kernel, among them; A's and B's rows carry
+``cli_launches``, F's the converted 7B tree's), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -3945,6 +3973,520 @@ def aligner_training_phase(card: str, lib, seed: int = 0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the umbrella command line and the host front ends on the card
+# ---------------------------------------------------------------------------
+
+CLI_VOICE, LEGACY_VOICE = "cli_voice", "legacy_voice"
+TOL_LEGACY_CARD_CPU = 0.05  # legacy adjustments card vs CPU, points (the pipeline's card-vs-CPU limit)
+# plot data card vs CPU, on the unrounded spectrogram (``ops.stft.spectrogram``, n_fft 1024, hop 256):
+# amplitude within 1e-5 of the peak amplitude everywhere (fifty times the 2e-7 by which the CPU's
+# float32 spectrogram of a cli voice segment departs from its float64 one), dB within 1e-3 where the
+# power is within 40 dB of the peak (float32 there: 2e-5 dB); F0 relative where both voiced
+TOL_VIZ_AMP, TOL_VIZ_DB, TOL_VIZ_DB_RANGE, TOL_VIZ_F0 = 1e-5, 1e-3, 40.0, 0.01
+# Qwen/Qwen2.5-7B config.json, and openai/whisper-base's
+QWEN25_7B_HF = dict(vocab_size=152064, hidden_size=3584, num_hidden_layers=28, num_attention_heads=28,
+                    num_key_value_heads=4, intermediate_size=18944, rope_theta=1e6)
+WHISPER_BASE_HF = dict(d_model=512, encoder_layers=6, decoder_layers=6, heads=8, num_mel_bins=80, vocab_size=51865,
+                       ffn=2048, max_source_positions=1500, max_target_positions=448)
+CLI_NEW_TOKENS = 8
+
+
+def cli(argv) -> float:
+    """One ``python -m prosody_control_french_tts_tpu_torch`` command in this
+    process → wall seconds to the end of the device's work; a non-zero
+    return fails the phase."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.__main__ import main as cli_main
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    if rc not in (None, 0):
+        raise SystemExit(f"cli {argv[0]}: returned {rc}")
+    return time.perf_counter() - t0
+
+
+def a_b_launches() -> tuple[int, int]:
+    from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+
+    return candidates.launches, viterbi.launches
+
+
+def cli_config(base: Path, voice: str) -> Path:
+    cfg = {"data_dir": "Data/voice", "out_dir": "Out", "voice_names": [voice], "azure_voice_name": "fr-FR-DeniseNeural",
+           "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300}, "tts_backend": "fake",
+           "aligner": "precomputed", "steps_to_run": ["Align+Transcribe", "Raw Synthesis", "Measure & Build SSML",
+                                                     "Synthesize+Merge", "Export JSON", "Final Transcribe", "Compare Breaks"],
+           "ab_test": {"output_dir": "Out/AB_test", "num_pairs": 4, "target_duration_s": 30, "margin_s": 10}}
+    path = base / "config.yaml"
+    path.write_text(json.dumps(cfg), encoding="utf-8")  # JSON is YAML
+    return path
+
+
+def legacy_columns(path: Path) -> list:
+    return [(r["syntagme"], float(r["relative_pitch_pct"]), float(r["loudness_adjustment"]), float(r["rate_adjustment"]))
+            for r in read_csv(path)]
+
+
+def legacy_phase(tmp: Path, seed: int, card: str) -> dict:
+    """Phase 23.2: ``legacy`` on the measure voice laid out with its raw
+    renderings, on the card; a 2-segment voice on the card and the CPU."""
+    from prosody_control_french_tts_tpu_torch.legacy import bdd
+    from prosody_control_french_tts_tpu_torch.utils.synth import lay_out_voice, synth_voice
+
+    base = tmp / "cli"
+    cfg = cli_config(base, LEGACY_VOICE)
+    a0, b0 = a_b_launches()
+    with Capture(bdd, "praat_pitch", keep=0, results=False) as tracks:
+        seconds = cli(["legacy", "--config", cfg, "--voice", LEGACY_VOICE, "--device", "cuda"])
+    a1, b1 = a_b_launches()
+    out = base / "Out" / "results" / LEGACY_VOICE / "legacy"
+    rows = read_csv(out / "BDD_ssml.csv")
+    synts = read_csv(out / "BDD4.csv")
+    if len(rows) != FULL_SEGMENTS or not all(r["ssml"].startswith("<speak") for r in rows) or not (out / "OUT.wav").exists():
+        raise SystemExit(f"legacy: {len(rows)} BDD5 rows for {FULL_SEGMENTS} segments, or no OUT.wav")
+    if (a1 - a0, b1 - b0) != (tracks.count, tracks.count) or tracks.count < 2 * FULL_SEGMENTS:
+        raise SystemExit(f"legacy: A/B launches {a1 - a0}/{b1 - b0} for {tracks.count} pitch tracks")
+    # the same 2-segment voice through the chain on the card and on the CPU
+    gaps = []
+    for dev in ("cuda", "cpu"):
+        sb = tmp / f"cli_small_{dev}"
+        synth_voice(sb / "synth", seed=seed + 1, n_segments=2, seconds=(3.0, 5.0))
+        lay_out_voice(sb / "synth", sb / "Data" / "voice", "small")
+        cli(["legacy", "--config", cli_config(sb, "small"), "--voice", "small", "--device", dev])
+        gaps.append(legacy_columns(sb / "Out" / "results" / "small" / "legacy" / "BDD4.csv"))
+    if [g[0] for g in gaps[0]] != [g[0] for g in gaps[1]]:
+        raise SystemExit("legacy small voice: card and CPU syntagmes differ")
+    gap = max((abs(x - y) for a, b in zip(*gaps) for x, y in zip(a[1:], b[1:])), default=0.0)
+    if gap > TOL_LEGACY_CARD_CPU:
+        raise SystemExit(f"legacy small voice: card vs CPU adjustments differ by {gap} points")
+    print(f"cli legacy ({FULL_SEGMENTS} segments + raw renderings): {seconds:.3f} s, {len(rows)} BDD5 rows, "
+          f"{len(synts)} syntagmes; pitch tracks {tracks.count} (of at most 4 floors x {2 * FULL_SEGMENTS} wavs), "
+          f"A {a1 - a0} / B {b1 - b0} launches; 2-segment voice card vs CPU: largest adjustment gap {gap:.3e} points; card={card}")
+    return dict(seconds=seconds, rows=len(rows), tracks=tracks.count, launches=(a1 - a0, b1 - b0), card_cpu_gap=gap)
+
+
+def viewer_phase(tmp: Path, card: str) -> dict:
+    """Phase 23.4 and 23.8: the viewer over the run's natural and raw
+    segments, served on an ephemeral port, preloaded by four threads;
+    plot data card vs CPU; ``device_trace`` around one plot."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.core.profiling import device_trace
+    from prosody_control_french_tts_tpu_torch.ops.stft import spectrogram
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav
+    from prosody_control_french_tts_tpu_torch.viz.plotdata import compute_plot_data
+    from prosody_control_french_tts_tpu_torch.viz.server import VizService, serve
+
+    data = tmp / "cli" / "Data" / "voice"
+    nat, raw = data / CLI_VOICE, data / f"{CLI_VOICE}_raw"
+    ab_log = tmp / "cli" / "Out" / "ab_responses.jsonl"
+    svc = VizService({"natural": nat / "audio", "synthetic": raw / "audio"},
+                     {"natural": nat / "WhisperTS_textgrid_files"}, ab_log_path=ab_log, device="cuda")
+    httpd = serve(svc, port=0, preload=False)
+    port = httpd.server_address[1]
+    url = f"http://127.0.0.1:{port}"
+    try:
+        a0, b0 = a_b_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.preload_all(workers=4)
+        torch.cuda.synchronize()
+        preload_s = time.perf_counter() - t0
+        a1, b1 = a_b_launches()
+        n = len(svc.cache)
+        if n != 2 * FULL_SEGMENTS or (a1 - a0, b1 - b0) != (n, n):
+            raise SystemExit(f"viewer: {n} plots preloaded, A/B launches {a1 - a0}/{b1 - b0}")
+        segs = json.loads(urllib.request.urlopen(url + "/segments", timeout=60).read())
+        if len(segs) != FULL_SEGMENTS:
+            raise SystemExit(f"viewer: /segments lists {len(segs)}")
+        get_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pd = json.loads(urllib.request.urlopen(url + "/plot_data/natural/segment_ph1", timeout=60).read())
+            get_ms.append((time.perf_counter() - t0) * 1e3)
+        if not pd["intervals"] or not any(v is not None for v in pd["f0"]["hz"]):
+            raise SystemExit("viewer: /plot_data without intervals or voiced frames")
+        req = urllib.request.Request(url + "/ab_response", data=json.dumps({"segment": "segment_ph1", "choice": 1}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        if json.loads(urllib.request.urlopen(req, timeout=60).read()) != {"status": "ok"}:
+            raise SystemExit("viewer: /ab_response")
+        if json.loads(ab_log.read_text(encoding="utf-8").splitlines()[-1])["segment"] != "segment_ph1":
+            raise SystemExit("viewer: the A/B response was not logged")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    # one plot computed on the card (warm) against the CPU's
+    wav, tg = nat / "audio" / "segment_ph2.wav", nat / "WhisperTS_textgrid_files" / "segment_ph2.TextGrid"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compute_plot_data(wav, tg, device="cuda")
+    plot_ms = (time.perf_counter() - t0) * 1e3
+    want = compute_plot_data(wav, tg, device="cpu")
+    # the JSON's rounded spectrograms only as a check of structure; the values unrounded
+    same_grid = np.shape(got["spectrogram"]["db"]) == np.shape(want["spectrogram"]["db"])
+    x = torch.from_numpy(np.asarray(read_wav(wav).to_mono().samples, np.float32))
+    pc, pp = (spectrogram(x.to(d), n_fft=1024, hop_length=256, db=False).double().cpu().numpy() for d in ("cuda", "cpu"))
+    amp_gap = float(np.abs(np.sqrt(pc) - np.sqrt(pp)).max() / np.sqrt(pp.max()))
+    db_c, db_p = (10 * np.log10(np.maximum(p, 1e-30) / p.max()) for p in (pc, pp))
+    bright = db_p > -TOL_VIZ_DB_RANGE
+    db_gap = float(np.abs(db_c - db_p)[bright].max())
+    fg = np.array([np.nan if v is None else v for v in got["f0"]["hz"]])
+    fw = np.array([np.nan if v is None else v for v in want["f0"]["hz"]])
+    both = np.isfinite(fg) & np.isfinite(fw)
+    f0_gap = float(np.abs(fg[both] / fw[both] - 1).max())
+    voicing = float((np.isfinite(fg) == np.isfinite(fw)).mean())
+    if (not same_grid or amp_gap > TOL_VIZ_AMP or db_gap > TOL_VIZ_DB or f0_gap > TOL_VIZ_F0 or voicing < 0.99
+            or got["intervals"] != want["intervals"]):
+        raise SystemExit(f"viewer plot card vs CPU: grid equal {same_grid}, amplitude {amp_gap} of the peak, dB {db_gap} "
+                         f"within {TOL_VIZ_DB_RANGE} dB of the peak, F0 {f0_gap}, voicing agreement {voicing}")
+    # device_trace around one plot: the trace names kernels A and B
+    trace_dir = tmp / "cli" / "trace"
+    with device_trace(trace_dir) as prof:
+        compute_plot_data(wav, tg, device="cuda")
+    traces = sorted(trace_dir.glob("trace_*.json"))
+    text = traces[-1].read_text(encoding="utf-8") if traces else ""
+    names = {k: text.count(k) for k in ("pitch_candidates_kernel", "viterbi_kernel")}
+    if not all(names.values()):
+        raise SystemExit(f"device_trace: {traces} names kernels {names}")
+    dev_us = sum(e.device_time_total for e in prof.key_averages())
+    print(f"cli viewer: {n} plots preloaded on 4 threads in {preload_s:.3f} s (A {a1 - a0} / B {b1 - b0} launches), "
+          f"GET /plot_data (cached) {np.median(get_ms):.2f} ms median of 5, one plot computed on the card {plot_ms:.1f} ms; "
+          f"card vs CPU (unrounded spectrogram): amplitude gap {amp_gap:.3e} of the peak, dB gap {db_gap:.3e} within "
+          f"{TOL_VIZ_DB_RANGE:.0f} dB of the peak ({bright.mean():.4f} of bins); F0 gap {f0_gap:.3e}, voicing agreement {voicing:.4f}; "
+          f"device_trace {traces[-1].name} ({traces[-1].stat().st_size} bytes) names {names}, device time {dev_us / 1e3:.3f} ms; card={card}")
+    return dict(preload_s=preload_s, plots=n, launches=(a1 - a0, b1 - b0), get_ms=float(np.median(get_ms)),
+                plot_ms=plot_ms, amp_gap=amp_gap, db_gap=db_gap, f0_gap=f0_gap)
+
+
+def checkpoint_phase(tmp: Path, card: str) -> dict:
+    """Phase 23.5: ``train_stage(ckpt_dir=...)`` on the card, 3 epochs,
+    keep 2; the newest checkpoint restored into a fresh model generates
+    the same text."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.core.checkpoint import restore_train_state
+    from prosody_control_french_tts_tpu_torch.models import cascade
+    from prosody_control_french_tts_tpu_torch.models.llm import DecoderLM, LLMConfig
+    from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    pairs = [{"x": s, "y": s.replace(",", " <break/>")} for s in (
+        "le chat dort, le chien aussi", "il pleut, nous restons", "elle chante, il danse", "on part demain, si possible",
+        "le train arrive, enfin", "tu viens, ou pas", "la voix change, beaucoup", "nous avons parlé, de musique")]
+    tok = WordPieceTokenizer.train([cascade.format_example(cascade.TASK_A, p["x"], p["y"]) for p in pairs],
+                                   vocab_size=200, min_freq=1)
+    ckpt = tmp / "cli" / "ckpt"
+    t0 = time.perf_counter()
+    model, params, losses = cascade.train_stage(pairs, tok, epochs=3, batch_size=4, ckpt_dir=ckpt, ckpt_keep=2, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = sorted(p.name for p in ckpt.iterdir())
+    if steps != ["step_00000002", "step_00000003"]:
+        raise SystemExit(f"train_stage checkpoints: {steps}")
+    restored, step = restore_train_state(ckpt, {"params": {k: torch.empty_like(v) for k, v in params.items()}})
+    if step != 3 or not all(torch.equal(restored["params"][k], v) for k, v in params.items()):
+        raise SystemExit("train_stage: the newest checkpoint is not the trained state")
+    fresh = DecoderLM(LLMConfig(vocab_size=len(tok), dim=128, layers=2, heads=4, kv_heads=2, ffn=256, max_len=256),
+                      device="cuda", seed=99)
+    fresh.load_state_dict(restored["params"])
+    texts = [cascade.generate(m, tok, cascade.TASK_A, pairs[1]["x"], max_new=24, device="cuda") for m in (model, fresh)]
+    if texts[0] != texts[1]:
+        raise SystemExit(f"train_stage: the restored model generates {texts[1]!r}, the trained one {texts[0]!r}")
+    print(f"cli train_stage on the card: 3 epochs ({len(losses)} steps, losses {losses[0]:.3f} -> {losses[-1]:.3f}) with "
+          f"checkpoints in {train_s:.2f} s; kept {steps}; restored step {step} bit-equal, the same generated text; card={card}")
+    return dict(train_s=train_s, losses=losses)
+
+
+def hf_qwen2_state_dict(seed: int) -> dict:
+    """Qwen2.5-7B's tensors under HF's names and layouts ([out, in] weights,
+    q/k/v biases, an untied head), bfloat16, drawn on the card from the seed
+    (HF's initializer_range 0.02; unit norms)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = QWEN25_7B_HF
+    d, f, kv = c["hidden_size"], c["intermediate_size"], c["num_key_value_heads"] * (c["hidden_size"] // c["num_attention_heads"])
+
+    def w(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(0.0, 0.02, generator=g)
+
+    sd = {"model.embed_tokens.weight": w(c["vocab_size"], d), "model.norm.weight": torch.ones(d, dtype=torch.bfloat16, device="cuda"),
+          "lm_head.weight": w(c["vocab_size"], d)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": torch.ones(d, dtype=torch.bfloat16, device="cuda"),
+                   p + "post_attention_layernorm.weight": torch.ones(d, dtype=torch.bfloat16, device="cuda"),
+                   p + "self_attn.q_proj.weight": w(d, d), p + "self_attn.q_proj.bias": w(d),
+                   p + "self_attn.k_proj.weight": w(kv, d), p + "self_attn.k_proj.bias": w(kv),
+                   p + "self_attn.v_proj.weight": w(kv, d), p + "self_attn.v_proj.bias": w(kv),
+                   p + "self_attn.o_proj.weight": w(d, d),
+                   p + "mlp.gate_proj.weight": w(f, d), p + "mlp.up_proj.weight": w(f, d), p + "mlp.down_proj.weight": w(d, f)})
+    return sd
+
+
+def hf_whisper_state_dict(seed: int) -> dict:
+    """whisper-base's tensors under HF's ``WhisperForConditionalGeneration``
+    names and layouts, float32, drawn on the card from the seed."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = WHISPER_BASE_HF
+    d, f = c["d_model"], c["ffn"]
+
+    def w(*shape):
+        return torch.empty(shape, device="cuda").normal_(0.0, 0.02, generator=g)
+
+    def ln(name):
+        return {name + ".weight": torch.ones(d, device="cuda"), name + ".bias": torch.zeros(d, device="cuda")}
+
+    def block(p, cross):
+        out = {**ln(p + "self_attn_layer_norm"), **ln(p + "final_layer_norm"),
+               p + "fc1.weight": w(f, d), p + "fc1.bias": w(f), p + "fc2.weight": w(d, f), p + "fc2.bias": w(d)}
+        for a in ("self_attn",) + (("encoder_attn",) if cross else ()):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                out[f"{p}{a}.{proj}.weight"] = w(d, d)
+                if proj != "k_proj":
+                    out[f"{p}{a}.{proj}.bias"] = w(d)
+        if cross:
+            out.update(ln(p + "encoder_attn_layer_norm"))
+        return out
+
+    sd = {"model.encoder.conv1.weight": w(d, c["num_mel_bins"], 3), "model.encoder.conv1.bias": w(d),
+          "model.encoder.conv2.weight": w(d, d, 3), "model.encoder.conv2.bias": w(d),
+          "model.encoder.embed_positions.weight": w(c["max_source_positions"], d),
+          **ln("model.encoder.layer_norm"), **ln("model.decoder.layer_norm"),
+          "model.decoder.embed_tokens.weight": w(c["vocab_size"], d),
+          "model.decoder.embed_positions.weight": w(c["max_target_positions"], d)}
+    sd["proj_out.weight"] = sd["model.decoder.embed_tokens.weight"]
+    for i in range(c["encoder_layers"]):
+        sd.update(block(f"model.encoder.layers.{i}.", cross=False))
+    for i in range(c["decoder_layers"]):
+        sd.update(block(f"model.decoder.layers.{i}.", cross=True))
+    return sd
+
+
+def converters_phase(seed: int, card: str) -> dict:
+    """Phase 23.6: the HF converters at published widths, weights drawn on
+    the card: Qwen2.5-7B → ``qwen2_to_torch`` → the fused serving tree →
+    8 greedy tokens through kernel F; whisper-base → ``whisper_to_torch`` →
+    ``WhisperAligner``, one 30 s window encoded and a few tokens decoded."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.align.ctc_aligner import nest
+    from prosody_control_french_tts_tpu_torch.align.whisper import KVCache, WhisperAligner, WhisperConfig
+    from prosody_control_french_tts_tpu_torch.convert import whisper_params_to_jax
+    from prosody_control_french_tts_tpu_torch.models import llm
+    from prosody_control_french_tts_tpu_torch.models.bpe_tokenizer import synthetic_multilingual
+    from prosody_control_french_tts_tpu_torch.models.port_weights import llm_config_from_hf, qwen2_to_torch, whisper_to_torch
+    from prosody_control_french_tts_tpu_torch.ops import decode_attn
+    from prosody_control_french_tts_tpu_torch.utils.wavio import Audio
+
+    out = {}
+    torch.cuda.empty_cache()
+    cfg = llm_config_from_hf(SimpleNamespace(**QWEN25_7B_HF))
+    hf = hf_qwen2_state_dict(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = qwen2_to_torch(hf, cfg)  # float32, as the JAX converter
+    for k in list(sd):  # each float32 tensor freed as its bfloat16 copy replaces it
+        sd[k] = sd[k].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    last = cfg.layers - 1
+    if not (torch.equal(sd["layers.0.attn.k.kernel"], hf["model.layers.0.self_attn.k_proj.weight"].t())
+            and torch.equal(sd[f"layers.{last}.mlp.down.kernel"], hf[f"model.layers.{last}.mlp.down_proj.weight"].t())
+            and torch.equal(sd["layers.0.attn.q.bias"], hf["model.layers.0.self_attn.q_proj.bias"])
+            and torch.equal(sd["lm_head.kernel"], hf["lm_head.weight"].t())):
+        raise SystemExit("qwen2_to_torch: a converted tensor is not HF's in the port's layout")
+    if len(sd) != 3 + cfg.layers * 12:  # embed, ln_f, head; a layer's 2 norms, q/k/v kernels and biases, o, gate, up, down
+        raise SystemExit(f"qwen2_to_torch: {len(sd)} tensors")
+    del hf
+    fp = llm.fuse_decode_params(sd, cfg)
+    del sd
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(seed)).to(torch.int32)
+    serve(fp, cfg, prompt, CLI_NEW_TOKENS)  # cold
+    decode_attn.launches = 0
+    toks, gen_s = serve(fp, cfg, prompt, CLI_NEW_TOKENS)
+    f_launches = decode_attn.launches
+    if f_launches != cfg.layers * (CLI_NEW_TOKENS - 1):
+        raise SystemExit(f"converted 7B: kernel F launched {f_launches} times, expected {cfg.layers * (CLI_NEW_TOKENS - 1)}")
+    check_served_tokens(fp, cfg, prompt, toks, CLI_NEW_TOKENS)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"cli converter Qwen2.5-7B geometry (28 layers, dim 3584, 28/4 heads, ffn 18944, vocab 152064, bf16, weights drawn "
+          f"on the card): qwen2_to_torch + cast to bf16 {convert_s:.3f} s, peak {peak_gib:.2f} GiB (the bf16 HF tree and the float32 converted one); "
+          f"fused serving tree, {CLI_NEW_TOKENS} greedy tokens for 4 prompts of 16 in {gen_s * 1e3:.1f} ms (warm), "
+          f"kernel F {f_launches} launches, peak {serve_peak:.2f} GiB; card={card}")
+    out.update(qwen_convert_s=convert_s, qwen_peak_gib=peak_gib, qwen_tokens_ms=gen_s * 1e3, f_launches=f_launches)
+    del fp
+    torch.cuda.empty_cache()
+
+    wcfg = WhisperConfig.base()
+    hf = hf_whisper_state_dict(seed)
+    t0 = time.perf_counter()
+    wsd = whisper_to_torch(hf, wcfg)
+    torch.cuda.synchronize()
+    wconvert_s = time.perf_counter() - t0
+    del hf
+    # the aligner keeps its weights as the flax-layout tree it saves (WhisperAligner.params)
+    al = WhisperAligner(wcfg, params=nest(whisper_params_to_jax(wsd, wcfg.heads)), tokenizer=synthetic_multilingual(),
+                        use_vad=False, detect_disfluencies=False, device="cuda")
+    if not all(torch.equal(v, wsd[k].to(v.dtype)) for k, v in al.model.state_dict().items()):
+        raise SystemExit("whisper_to_torch: the aligner's weights are not the converted tensors")
+    x = (0.1 * np.random.default_rng(seed).normal(size=30 * 16000)).astype(np.float32)
+    mel = al.features(Audio(x, 16000))[None]  # [1, 3000, 80]: one 30 s window
+    with torch.no_grad():
+        al.model.encode(mel)  # cold
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = al.model.encode(mel)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        kvs = al.model.cross_kv(enc)
+        hd = wcfg.dim // wcfg.heads
+
+        def greedy4() -> list:
+            caches = [KVCache(1, 8, wcfg.heads, hd, wcfg.dtype, "cuda") for _ in range(wcfg.dec_layers)]
+            toks = [50258]
+            for pos in range(4):
+                logits, _ = al.model.decode_step(torch.tensor([[toks[-1]]], device="cuda"), pos, caches, kvs)
+                toks.append(int(logits[0, -1].argmax()))
+            return toks
+
+        cold = greedy4()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = greedy4()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 4
+        if toks != cold:
+            raise SystemExit(f"whisper-base: the warm greedy steps {toks} differ from the cold ones {cold}")
+        forced, _ = al.model.decode(torch.tensor([toks[:-1]], device="cuda"), enc)
+    if enc.shape != (1, wcfg.n_audio_ctx, wcfg.dim) or not torch.isfinite(enc).all() or not torch.isfinite(forced).all():
+        raise SystemExit(f"whisper-base: encoder output {tuple(enc.shape)} or logits not finite")
+    if forced[0].argmax(-1).tolist() != toks[1:]:
+        raise SystemExit(f"whisper-base: greedy steps {toks[1:]} != the teacher-forced argmax {forced[0].argmax(-1).tolist()}")
+    tg = al.align(Audio(x[: 3 * 16000], 16000), "bonjour le monde")
+    if not tg.tiers or not tg.tiers[0]:
+        raise SystemExit("whisper-base: the aligner gave no TextGrid tier")
+    print(f"cli converter whisper-base geometry (d 512, 6 + 6 layers, 8 heads, 80 mels, vocab 51865, weights drawn on the "
+          f"card): whisper_to_torch {wconvert_s:.3f} s; WhisperAligner encodes a 30 s window in {enc_ms:.2f} ms (warm), "
+          f"{step_ms:.2f} ms a greedy token (4 tokens after 4 of warm-up, equal to the teacher-forced argmax); align() on 3 s gave a TextGrid; card={card}")
+    out.update(whisper_convert_s=wconvert_s, whisper_encode_ms=enc_ms, whisper_step_ms=step_ms)
+    del al, wsd
+    torch.cuda.empty_cache()
+    return out
+
+
+def sinc_pitch_phase(tmp: Path, card: str) -> dict:
+    """Phase 23.7: ``praat_pitch`` with ``sinc_refine_steps=2`` on one
+    segment on the card and the CPU."""
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.ops.pitch import PitchParams, praat_pitch
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav
+
+    a = read_wav(tmp / "cli" / "Data" / "voice" / CLI_VOICE / "audio" / "segment_ph1.wav").to_mono()
+    x = np.asarray(a.samples, np.float32)
+    p = PitchParams(sinc_refine_steps=2)
+    a0, b0 = a_b_launches()
+    t0 = time.perf_counter()
+    fc = praat_pitch(x, a.rate, p, device="cuda").f0.cpu().numpy()
+    card_s = time.perf_counter() - t0
+    a1, b1 = a_b_launches()
+    fp = praat_pitch(x, a.rate, p, device="cpu").f0.numpy()
+    parabolic = praat_pitch(x, a.rate, device="cuda").f0.cpu().numpy()
+    both = (fc > 0) & (fp > 0)
+    gap = float(np.abs(fc[both] / fp[both] - 1).max())
+    agree = float((((fc == 0) & (fp == 0)) | np.isclose(fc, fp, rtol=1e-3, atol=0)).mean())
+    moved = float(np.median(np.abs(fc[both & (parabolic > 0)] / parabolic[both & (parabolic > 0)] - 1)))
+    if (a1 - a0, b1 - b0) != (1, 1) or agree < 0.995 or both.sum() < 100:
+        raise SystemExit(f"sinc pitch: launches {a1 - a0}/{b1 - b0}, frames agreeing {agree}, voiced in both {both.sum()}")
+    print(f"cli praat_pitch sinc_refine_steps=2 ({a.duration_seconds:.1f} s segment, {fc.size} frames): card {card_s * 1e3:.1f} ms "
+          f"(A, B once); card vs CPU: {agree:.4f} of frames agree (voicing, F0 1e-3), largest F0 gap {gap:.3e} relative where "
+          f"both voiced; median move from the parabolic track {moved:.2e}; card={card}")
+    return dict(gap=gap, agree=agree, launches=(a1 - a0, b1 - b0))
+
+
+def cli_phase(tmp: Path, seed: int, card: str) -> dict:
+    """Phase 23 of the module docstring → its measurements and the launches
+    of A and B (``run``, ``legacy``, the viewer, the sinc track) and F (the
+    converted 7B tree)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.utils.synth import lay_out_voice, synth_voice
+
+    t_phase = time.perf_counter()
+    base = tmp / "cli"
+    synth_voice(base / "synth", seed=seed, n_segments=FULL_SEGMENTS)
+    for name in (CLI_VOICE, LEGACY_VOICE):
+        lay_out_voice(base / "synth", base / "Data" / "voice", name)
+    audio_s = sum(read_wav_seconds(p) for p in (base / "synth" / "audio").glob("*.wav"))
+    cfg = cli_config(base, CLI_VOICE)
+    out = {}
+    # 1. run: the seven steps after Preprocess (the voice is already split)
+    cli(["run", "--config", cfg, "--device", "cuda"])  # cold
+    a0, b0 = a_b_launches()
+    run_s = cli(["run", "--config", cfg, "--device", "cuda"])
+    a1, b1 = a_b_launches()
+    if (a1 - a0, b1 - b0) != (1, 1):
+        raise SystemExit(f"cli run: A/B launched {a1 - a0}/{b1 - b0} times, expected once each")
+    res = base / "Out" / "results" / CLI_VOICE
+    steps = {json.loads(line)["step"]: json.loads(line)["seconds"] for line in (res / "step_timings.jsonl").read_text().splitlines()}
+    if len(read_csv(res / "BDD_ssml.csv")) != FULL_SEGMENTS or not (res / "OUT.wav").exists():
+        raise SystemExit("cli run: BDD_ssml.csv or OUT.wav")
+    print(f"cli run ({FULL_SEGMENTS} segments, {audio_s:.1f} s, precomputed TextGrids, fake TTS): warm {run_s:.3f} s, "
+          f"{audio_s / run_s:.1f} audio-s/s; A {a1 - a0} / B {b1 - b0} launches; steps (s) {json.dumps(steps)}; card={card}")
+    out["run"] = dict(seconds=run_s, audio_s=audio_s, steps=steps, launches=(a1 - a0, b1 - b0))
+    # 2. legacy
+    out["legacy"] = legacy_phase(tmp, seed, card)
+    # 3. sync, corpus + analyze, abtest (host)
+    host = {}
+    host["sync"] = cli(["sync", "--config", cfg, "--voice", CLI_VOICE])
+    host["corpus"] = cli(["corpus", base / "Data" / "voice", base / "corpus"])
+    host["analyze"] = cli(["analyze", base / "corpus"])
+    host["abtest"] = cli(["abtest", "--config", cfg])
+    sync_wavs = len(list((res / "synchronized").rglob("*.wav")))
+    pairs = len(list((base / "Out" / "AB_test").glob("*/raw.wav")))
+    if not sync_wavs or not pairs:
+        raise SystemExit(f"cli sync / abtest: {sync_wavs} synchronized wavs, {pairs} A/B pairs")
+    print(f"cli host commands (s): {json.dumps({k: round(v, 3) for k, v in host.items()})}; {sync_wavs} synchronized wavs, "
+          f"{pairs} A/B pairs; card={card}")
+    # 4, 8. the viewer and device_trace
+    out["viewer"] = viewer_phase(tmp, card)
+    # 5. train_stage with checkpoints
+    out["checkpoints"] = checkpoint_phase(tmp, card)
+    # 7. the sinc-refined pitch track
+    out["sinc"] = sinc_pitch_phase(tmp, card)
+    # 6. the converters at published widths (last: the 7B tree is the largest allocation)
+    out["converters"] = converters_phase(seed, card)
+    torch.cuda.empty_cache()
+    out["launches_a"] = {"run": out["run"]["launches"][0], "legacy": out["legacy"]["launches"][0],
+                         "viewer": out["viewer"]["launches"][0], "sinc_track": out["sinc"]["launches"][0]}
+    out["launches_b"] = {"run": out["run"]["launches"][1], "legacy": out["legacy"]["launches"][1],
+                         "viewer": out["viewer"]["launches"][1], "sinc_track": out["sinc"]["launches"][1]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 23 took {out['phase_s']:.1f} s; card={card}")
+    return out
+
+
+def read_wav_seconds(path: Path) -> float:
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav
+
+    return read_wav(path).duration_seconds
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4141,6 +4683,15 @@ def main() -> int:
 
     # -- 22. the training halves of the aligners and the separator -------------
     rows_out.append(aligner_training_phase(card, lib, args.seed)["ctc_loss_row"])
+
+    # -- 23. the umbrella command line and the host front ends -----------------
+    with tempfile.TemporaryDirectory() as tmp3:
+        cli_out = cli_phase(Path(tmp3), args.seed, card)
+    for row in rows_out:
+        if row["name"] in ("pitch_candidates", "viterbi"):
+            row["cli_launches"] = cli_out["launches_a" if row["name"] == "pitch_candidates" else "launches_b"]
+        elif row["name"] == "decode_attn":
+            row["cli_launches"] = {"converted_7b": cli_out["converters"]["f_launches"]}
 
     print(f"measure step (warm): wall {warm_s:.3f} s, {audio_s / warm_s:.1f} audio-s/s; cold {cold_s:.3f} s; card={card}")
     print("phases warm: " + json.dumps({k2: round(v, 4) for k2, v in sorted(warm_phases.items())}))

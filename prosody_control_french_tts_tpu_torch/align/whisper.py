@@ -9,10 +9,10 @@ reference's primary aligner, the whisper-timestamped stack
   learned positions, causal self-attention with a KV cache (which refuses
   to overflow) and cross-attention, tied embedding head. It rounds where
   the flax model rounds: the projections, the feed-forward layers and the
-  attention products in bfloat16 (``models.layers``), the softmax of the
-  scores in float32, the LayerNorms and the head in float32; the encoder's
-  residual stream is float32 and the decoder's bfloat16, as the flax
-  model's type promotion makes them. The scores are ``torch.matmul``
+  attention products in the config's ``dtype`` (bfloat16 by default;
+  ``models.layers``), the softmax of the scores in float32, the LayerNorms
+  and the head in float32; the encoder's residual stream is float32 and the
+  decoder's in ``dtype``, as the flax model's type promotion makes them. The scores are ``torch.matmul``
   products, not a fused attention, so that they round as XLA rounds them;
 - greedy transcription (``make_greedy_fn``): mel → encoder → each layer's
   cross-attention K/V once → KV-cached one-token decoder steps, optionally
@@ -133,10 +133,10 @@ class _MHA(nn.Module):
     def __init__(self, cfg: WhisperConfig, causal: bool = False):
         super().__init__()
         self.cfg, self.causal = cfg, causal
-        self.q = Dense(cfg.dim, cfg.dim)
-        self.k = Dense(cfg.dim, cfg.dim, bias=False)
-        self.v = Dense(cfg.dim, cfg.dim)
-        self.out = Dense(cfg.dim, cfg.dim)
+        self.q = Dense(cfg.dim, cfg.dim, dtype=cfg.dtype)
+        self.k = Dense(cfg.dim, cfg.dim, bias=False, dtype=cfg.dtype)
+        self.v = Dense(cfg.dim, cfg.dim, dtype=cfg.dtype)
+        self.out = Dense(cfg.dim, cfg.dim, dtype=cfg.dtype)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, dim] → [B, L, heads, hd]
         return x.reshape(*x.shape[:-1], self.cfg.heads, self.cfg.dim // self.cfg.heads)
@@ -154,7 +154,7 @@ class _MHA(nn.Module):
             if cache is not None:
                 cache.write(pos, k, v)
                 k, v = cache.k, cache.v
-        # [B, heads, L, S] bfloat16 scores, divided by sqrt(hd) in bfloat16
+        # [B, heads, L, S] scores in the config's dtype, divided by sqrt(hd) in it
         att = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
         att = att / torch.tensor(float(np.float32(np.sqrt(hd))), dtype=att.dtype, device=att.device)
         if self.causal:
@@ -178,8 +178,8 @@ class _Block(nn.Module):
             self.ln_cross = LayerNorm(cfg.dim)
             self.cross = _MHA(cfg)
         self.ln_ffn = LayerNorm(cfg.dim)
-        self.fc1 = Dense(cfg.dim, cfg.dim * 4)
-        self.fc2 = Dense(cfg.dim * 4, cfg.dim)
+        self.fc1 = Dense(cfg.dim, cfg.dim * 4, dtype=cfg.dtype)
+        self.fc2 = Dense(cfg.dim * 4, cfg.dim, dtype=cfg.dtype)
 
     def forward(self, x, enc=None, collect_cross: bool = False, cache=None, pos: int = 0, kv=None):
         hn = self.ln_attn(x)  # pre-norm: K/V project from the same normed h as q
@@ -189,38 +189,44 @@ class _Block(nn.Module):
         if self.use_cross:
             h, cross_w = self.cross(self.ln_cross(x), enc, return_weights=collect_cross, kv=kv)
             x = x + h
-        x = x + self.fc2(gelu_erf_bf16(self.fc1(self.ln_ffn(x))))
+        x = x + self.fc2(_gelu(self.fc1(self.ln_ffn(x))))
         return x, cross_w
 
 
-class _Conv(nn.Module):
-    """flax ``Conv(dim, (3,), strides, padding=((1, 1),), dtype=bfloat16)``
-    (torch ``Conv1d(padding=1)``) over [B, T, C] → [B, T', dim] bfloat16."""
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact gelu, rounded after each operation in bfloat16."""
+    return gelu_erf_bf16(x) if x.dtype == BF16 else F.gelu(x)
 
-    def __init__(self, c_in: int, c_out: int, stride: int):
+
+class _Conv(nn.Module):
+    """flax ``Conv(dim, (3,), strides, padding=((1, 1),), dtype=dtype)``
+    (torch ``Conv1d(padding=1)``) over [B, T, C] → [B, T', dim] in ``dtype``."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int, dtype: torch.dtype = BF16):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(c_out, c_in, 3, dtype=BF16), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(c_out, dtype=BF16), requires_grad=False)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, 3, dtype=dtype), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c_out, dtype=dtype), requires_grad=False)
         self.stride = stride
 
     def forward(self, x):
-        y = F.conv1d(x.to(BF16).transpose(1, 2), self.weight.to(BF16), stride=self.stride, padding=1)
-        return y.transpose(1, 2) + self.bias.to(BF16)
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2), self.weight.to(self.dtype), stride=self.stride, padding=1)
+        return y.transpose(1, 2) + self.bias.to(self.dtype)
 
 
 class WhisperEncoder(nn.Module):
     def __init__(self, cfg: WhisperConfig):
         super().__init__()
         self.cfg = cfg
-        self.conv1 = _Conv(cfg.n_mels, cfg.dim, 1)
-        self.conv2 = _Conv(cfg.dim, cfg.dim, 2)
+        self.conv1 = _Conv(cfg.n_mels, cfg.dim, 1, cfg.dtype)
+        self.conv2 = _Conv(cfg.dim, cfg.dim, 2, cfg.dtype)
         self.register_buffer("pos", torch.from_numpy(sinusoids(cfg.n_audio_ctx, cfg.dim)), persistent=False)
         self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.enc_layers))
         self.ln_post = LayerNorm(cfg.dim)
 
     def forward(self, mel):  # mel [B, T, n_mels] float32 → [B, ceil(T/2), dim] float32
-        x = gelu_erf_bf16(self.conv1(mel))
-        x = gelu_erf_bf16(self.conv2(x))
+        x = _gelu(self.conv1(mel))
+        x = _gelu(self.conv2(x))
         x = x.float() + self.pos[: x.shape[-2]]  # float32 from here: the flax model promotes
         for blk in self.blocks:
             x, _ = blk(x)
@@ -239,11 +245,12 @@ class WhisperDecoder(nn.Module):
 
     def _embed(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
         """Token embeddings plus positions pos..pos+L-1, both rounded to
-        bfloat16 and added in bfloat16 (flax ``Embed(dtype=bfloat16)``)."""
+        the config's dtype and added in it (flax ``Embed(dtype=dtype)``)."""
         L = tokens.shape[-1]
         if pos + L > self.cfg.n_text_ctx:
             raise ValueError(f"decoder positions {pos}..{pos + L - 1} past n_text_ctx {self.cfg.n_text_ctx}")
-        return self.tok_emb.embedding[tokens.long()].to(BF16) + self.pos_emb[pos : pos + L].to(BF16)
+        dt = self.cfg.dtype
+        return self.tok_emb.embedding[tokens.long()].to(dt) + self.pos_emb[pos : pos + L].to(dt)
 
     def _head(self, x):
         return torch.matmul(self.ln_post(x), self.tok_emb.embedding.T)  # float32

@@ -7,8 +7,9 @@ string value, and the framework's extra keys (``tts_backend``, ``aligner``,
 ``main()`` through ``core.batch_runner`` (one batched measure pass for
 every voice, the counterpart of the reference's process pool). Keys that
 only unported parts read (the Azure key and region, Whisper, the pool's
-``num_processes``, A/B tests) stay in ``raw``, which ``used_config.yaml``
-writes. ``load_config`` reads YAML and imports
+``num_processes``) stay in ``raw``, which ``used_config.yaml`` writes;
+``ab_test`` (the A/B-test export's settings, which the ``abtest`` command
+reads) is a field as well. ``load_config`` reads YAML and imports
 PyYAML inside the function: only the command line needs it.
 """
 
@@ -58,6 +59,7 @@ class PipelineConfig:
     tts_backend: str = "azure"  # azure | fake
     aligner: str = "precomputed"  # precomputed | energy | ctc | whisper_jax
     pos_backend: str = "lexicon"  # lexicon | contextual
+    ab_test: dict = field(default_factory=dict)
     raw: dict = field(default_factory=dict)
 
     @property
@@ -92,6 +94,7 @@ class PipelineConfig:
             tts_backend=cfg.get("tts_backend", "azure"),
             aligner=cfg.get("aligner", "precomputed"),
             pos_backend=cfg.get("pos_backend", "lexicon"),
+            ab_test=cfg.get("ab_test", {}) or {},
             raw=cfg,
         )
 

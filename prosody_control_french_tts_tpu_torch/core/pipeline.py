@@ -550,6 +550,7 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--voices", nargs="*", help="override voice_names")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    resolve_device(args.device)  # a card asked for and missing raises here, not once per voice
     cfg = load_config(args.config)
     setup_logging(cfg.out_path)
     voices = args.voices or cfg.voice_names

@@ -5,15 +5,25 @@
 - ``phase``: which part of a step is slow (host prepare, device work,
   post-processing). Always on: one perf_counter pair per phase, accumulated
   in ``PHASES``.
+- ``device_trace``: a ``torch.profiler`` trace of the host and the card
+  around a block, written as a Chrome trace into a directory.
+
+The JAX package's ``enable_compile_cache`` (XLA's persistent compile cache)
+has no counterpart: nothing here is compiled per shape, and the CUDA kernels
+are built once per source hash into ``build/torch_kernels/``
+(``ops.kernels.build``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -57,3 +67,30 @@ def phase(name: str):
 
 def reset_phases() -> None:
     PHASES.clear()
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | Path, enabled: bool = True):
+    """``torch.profiler`` over the block (CPU activity, and CUDA activity
+    where a card is present), exported on exit as
+    ``trace_dir/trace_<pid>_<n>.json`` (Chrome trace format). Yields the
+    profiler (None when disabled), whose ``key_averages()`` sum the kernels
+    by name."""
+    if not enabled:
+        yield None
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = out / f"trace_{os.getpid()}_{len(list(out.glob('trace_*.json')))}.json"
+    prof.export_chrome_trace(str(path))
+    log.info("device trace written to %s", path)

@@ -79,12 +79,10 @@ def train_stage(
     """Fine-tune one stage on ``pairs``: every epoch a fresh permutation of
     the examples (``np.random.default_rng(seed)``), batches of ``batch_size``
     in that order, the last one short. Returns (model, params, losses) with
-    ``params`` the trained model's ``state_dict()``. With ``ckpt_dir`` it
-    raises: per-epoch checkpoints wait for the port of ``core/checkpoint``."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            f"train_stage(ckpt_dir=..., ckpt_keep={ckpt_keep}): per-epoch checkpoints are not ported yet (core/checkpoint)"
-        )
+    ``params`` the trained model's ``state_dict()``. With ``ckpt_dir``, saves
+    ``{"params": state_dict}`` after each epoch as step ``epoch + 1``
+    (``core.checkpoint``, keep-last-``ckpt_keep``: the HF-Trainer
+    ``save_total_limit=2`` contract, QwenB.py:218)."""
     cfg = cfg or LLMConfig(vocab_size=len(tokenizer), dim=128, layers=2, heads=4, kv_heads=2, ffn=256, max_len=256)
     batch = build_batches(pairs, tokenizer, task, cfg.max_len, x_key, y_key)
     model, tx, state = init_train(cfg, seed=seed, lr=lr, accum=accum, device=device)
@@ -92,11 +90,15 @@ def train_stage(
     losses = []
     rng = np.random.default_rng(seed)
     n = batch.ids.shape[0]
-    for _ in range(epochs):
+    for epoch in range(epochs):
         order = rng.permutation(n)
         for i in range(0, n, batch_size):
             b = order[i : i + batch_size]
             losses.append(float(step(batch.ids[b], batch.loss_mask[b])))
+        if ckpt_dir is not None:
+            from ..core.checkpoint import save_train_state
+
+            save_train_state(ckpt_dir, epoch + 1, {"params": model.state_dict()}, keep=ckpt_keep)
     return model, model.state_dict(), losses
 
 

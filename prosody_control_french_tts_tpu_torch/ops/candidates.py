@@ -80,5 +80,6 @@ def topk_parabolic(r: torch.Tensor, k: int, min_lag: int, max_lag: int, vth: flo
         R, L, k, int(min_lag), int(max_lag), float(0.5 * vth), kernels.stream_ptr(r),
     )
     kernels.check(rc, "pitch_candidates")
-    launches += 1
+    with kernels.COUNT_LOCK:  # the viewer's preload threads launch at once
+        launches += 1
     return lag_f, strength, valid

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -47,6 +48,13 @@ NVCC_FLAGS = (
 )
 
 _LIB = None
+# one build and one load a process: the first callers of ``library`` may be
+# several threads at once (the viewer's preload pool), and each would start
+# its own nvcc processes on the same objects
+_LIB_LOCK = threading.Lock()
+# the wrappers' launch counters are read-modify-writes on module globals:
+# wrappers that threads may call at once count under this lock
+COUNT_LOCK = threading.Lock()
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -192,15 +200,19 @@ def build() -> Path:
 
 
 def library():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; concurrent first
+    callers wait for one build and one load)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, args in _SIGNATURES.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(args)
-            f.restype = _RESTYPES.get(fn, ctypes.c_int)
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, args in _SIGNATURES.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(args)
+                f.restype = _RESTYPES.get(fn, ctypes.c_int)
+            _LIB = lib
     return _LIB
 
 

@@ -12,7 +12,11 @@ pitch_ceiling=600``:
    from a zero-padded ``torch.fft.rfft`` and a float32 matmul by the
    lag-restricted cosine matrix (the JAX package's ``rfft`` spectrum mode);
 4. voiced candidates: the strongest ``max_candidates − 1`` local maxima,
-   parabolic-interpolated — kernel A (``ops.candidates``);
+   parabolic-interpolated — kernel A (``ops.candidates``); with
+   ``sinc_refine_steps > 0`` each lag then takes that many Newton steps on
+   the Hann-windowed sinc interpolant of r (plain tensor code after kernel
+   A, as the JAX package runs it as XLA code), and the interpolant's value
+   there is the strength;
 5. unvoiced candidate strength from the frame's local/global peak ratio;
 6. the Viterbi path over frames with octave, octave-jump and voiced/
    unvoiced costs scaled by ``dt/0.01`` — kernel B (``ops.viterbi``).
@@ -48,7 +52,7 @@ class PitchParams:
     octave_jump_cost: float = 0.35
     voiced_unvoiced_cost: float = 0.14
     periods_per_window: float = 3.0
-    sinc_refine_steps: int = 0  # only 0 (parabolic) is ported
+    sinc_refine_steps: int = 0  # 0: parabolic lags; n > 0: n Newton steps on the sinc interpolant
     sinc_half_width: int = 16
 
 
@@ -170,14 +174,52 @@ def _frames_uniform(x: torch.Tensor, cls: dict) -> torch.Tensor:
     return inter.reshape(x.shape[:-1] + (cls["Fp"], W))[..., : cls["F"], :]
 
 
+def _sinc_refine(r: torch.Tensor, lag0: torch.Tensor, steps: int, half: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Newton refinement of each lag of ``lag0`` [rows, k] towards a local
+    maximum of the band-limited interpolant r(τ) = Σ_i r[i]·sinc(τ−i) of its
+    row of r [rows, L], truncated to ±``half`` samples around the peak and
+    tapered by a Hann window of width half + 1 (Praat's
+    NUMinterpolate_sinc). Each step moves at most one sample and the lag
+    stays within one sample of its start. Returns (lags, the interpolant's
+    value there), float32, the JAX package's ``_sinc_refine`` term by term."""
+    n = r.shape[-1]
+    base = torch.round(lag0).to(torch.int64).clamp(half, n - half - 1)
+    offs = torch.arange(-half, half + 1, device=r.device)
+    neigh = r[:, None, :].expand(-1, lag0.shape[1], -1).gather(-1, base[..., None] + offs)  # [rows, k, 2·half+1]
+    i = base[..., None].to(torch.float32) + offs.to(torch.float32)
+    a = math.pi / float(half + 1)
+
+    def value_and_derivs(tau):
+        u = tau[..., None] - i
+        z = math.pi * u
+        z = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
+        s = torch.sin(z) / z
+        ds = (torch.cos(z) - s) / z * math.pi  # d sinc / du
+        d2s = (-torch.sin(z) * math.pi - 2.0 * ds) / z * math.pi
+        w = 0.5 * (1.0 + torch.cos(a * u))
+        dw = -0.5 * a * torch.sin(a * u)
+        d2w = -0.5 * a * a * torch.cos(a * u)
+        k = s * w
+        dk = ds * w + s * dw
+        d2k = d2s * w + 2.0 * ds * dw + s * d2w
+        return (neigh * k).sum(-1), (neigh * dk).sum(-1), (neigh * d2k).sum(-1)
+
+    tau = lag0
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    for _ in range(steps):
+        _, d1, d2 = value_and_derivs(tau)
+        step = torch.where(d2.abs() > 1e-12, -d1 / d2, zero).clamp(-1.0, 1.0)
+        tau = torch.minimum(torch.maximum(tau + step, lag0 - 1.0), lag0 + 1.0)
+    val, _, _ = value_and_derivs(tau)
+    return tau, val
+
+
 def _pitch_frames(x: torch.Tensor, sr: float, num_samples: int, p: PitchParams, length=None):
     """Per-frame candidates of a batch x [S, T] float32 (zeros past each
     row's ``length`` samples; None → whole rows are real).
 
     Returns (freq [S,F,K], strength [S,F,K], intensity [S,F], frame_valid
     [S,F]); candidate 0 is the unvoiced candidate (freq 0, strength 0)."""
-    if p.sinc_refine_steps != 0:
-        raise NotImplementedError("sinc_refine_steps > 0 is not ported; use parabolic (0)")
     g = _geometry(num_samples, sr, p)
     F, W = g["n_frames"], g["nsamp_window"]
     K = p.max_candidates
@@ -235,9 +277,10 @@ def _pitch_frames(x: torch.Tensor, sr: float, num_samples: int, p: PitchParams, 
     acw = torch.from_numpy(_window_ac_ratio(W, L)).to(dev)
     r = (ac / (ac[..., :1] + 1e-30)) / acw
 
-    lag_f, strength, valid = candidates.topk_parabolic(
-        r.reshape(S * F, L).contiguous(), K - 1, g["min_lag"], g["max_lag"], p.voicing_threshold
-    )
+    r = r.reshape(S * F, L).contiguous()
+    lag_f, strength, valid = candidates.topk_parabolic(r, K - 1, g["min_lag"], g["max_lag"], p.voicing_threshold)
+    if p.sinc_refine_steps > 0:
+        lag_f, strength = _sinc_refine(r, lag_f, p.sinc_refine_steps, p.sinc_half_width)
     lag_f = lag_f.reshape(S, F, K - 1)
     strength = strength.reshape(S, F, K - 1)
     valid = valid.reshape(S, F, K - 1)

@@ -82,5 +82,6 @@ def viterbi_path(delta, lf, voiced, freq, vuv_cost: float, jump_cost: float) -> 
         kernels.stream_ptr(delta),
     )
     kernels.check(rc, "viterbi")
-    launches += 1
+    with kernels.COUNT_LOCK:  # the viewer's preload threads launch at once
+        launches += 1
     return f0

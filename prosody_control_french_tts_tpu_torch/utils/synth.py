@@ -9,11 +9,17 @@ word groups. The layout under ``root``:
 - ``audio/segment_ph<i>.wav``: the natural segments (PCM16);
 - ``textgrids/segment_ph<i>.TextGrid``: word tiers with the silences;
 - ``raw/segment_ph<i>.wav``: a "raw" synthetic rendering of each segment
-  with a flat F0, another gain and another length.
+  with a flat F0, another gain and another length;
+- ``raw_textgrids/segment_ph<i>.TextGrid``: its word tiers (the natural
+  spans scaled to its length).
+
+``lay_out_voice`` copies such a voice into the pipeline's layout of a voice
+and its raw synthesis, which the legacy chain reads.
 """
 
 from __future__ import annotations
 
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -48,8 +54,8 @@ def synth_voice(root, seed: int = 0, n_segments: int = 10, seconds=(8.0, 23.0), 
     """Write a synthetic voice under ``root``; returns (seg_files,
     textgrid_dir, raw_audio_dir)."""
     root = Path(root)
-    audio, tgs, raw = root / "audio", root / "textgrids", root / "raw"
-    for d in (audio, tgs, raw):
+    audio, tgs, raw, raw_tgs = root / "audio", root / "textgrids", root / "raw", root / "raw_textgrids"
+    for d in (audio, tgs, raw, raw_tgs):
         d.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     seg_files = []
@@ -85,5 +91,22 @@ def synth_voice(root, seed: int = 0, n_segments: int = 10, seconds=(8.0, 23.0), 
         y = _render([(s * k, e * k) for s, e in spans], total * k, lambda tt, u: np.full_like(tt, flat),
                     rng.uniform(0.2, 0.9), rate, rng)
         write_wav(raw / f"{name}.wav", y, rate)
+        write_textgrid(
+            word_tier_with_silences([(s * k, e * k, w) for (s, e), w in zip(spans, words)], len(y) / rate),
+            raw_tgs / f"{name}.TextGrid",
+        )
         seg_files.append(audio / f"{name}.wav")
     return seg_files, tgs, raw
+
+
+def lay_out_voice(root, data_dir, name: str) -> tuple[Path, Path]:
+    """Copy the voice that ``synth_voice`` wrote under ``root`` into
+    ``data_dir/<name>`` (``audio/``, ``WhisperTS_textgrid_files/``) and its
+    raw rendering into ``data_dir/<name>_raw`` (the same two). Returns the
+    two directories."""
+    root, data_dir = Path(root), Path(data_dir)
+    out = data_dir / name, data_dir / f"{name}_raw"
+    for d, (wavs, tgs) in zip(out, (("audio", "textgrids"), ("raw", "raw_textgrids"))):
+        shutil.copytree(root / wavs, d / "audio")
+        shutil.copytree(root / tgs, d / "WhisperTS_textgrid_files")
+    return out

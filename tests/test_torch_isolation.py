@@ -36,13 +36,14 @@ def test_importing_every_module_loads_no_jax():
                  "eval.corpus_compare", "eval.dataset_stats", "eval.abtest", "eval.aligner_harness",
                  "eval.real_audio_agreement", "align.needleman_wunsch", "align.levenshtein_merge", "ops.ctc_loss",
                  "align.train_ctc", "align.pretrain_ctc", "align.pretrain_whisper", "audio.corpus", "audio.convert",
-                 "models.schedules"):
+                 "models.schedules", "core.checkpoint", "models.port_weights", "legacy.bdd", "legacy.needleman",
+                 "legacy.voc", "viz.plotdata", "viz.acoustic", "viz.server", "__main__"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'transformers' "
         "or m == 'prosody_control_french_tts_tpu' or m.startswith('prosody_control_french_tts_tpu.'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
@@ -346,3 +347,35 @@ def test_packaged_pos_checkpoint_is_the_jax_packages():
     mine = PKG / "models" / "pretrained" / "pos_fr.npz"
     theirs = ROOT / "prosody_control_french_tts_tpu" / "models" / "pretrained" / "pos_fr.npz"
     assert mine.read_bytes() == theirs.read_bytes()
+
+
+def test_front_ends_default_to_cuda(tmp_path):
+    """The host front ends of the umbrella command line: the legacy chain,
+    its pitch stage, the plot data and the viewer default to CUDA and raise
+    without a card; asked for the CPU, they run. The converters and the
+    checkpoints follow their inputs' devices."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.legacy import bdd
+    from prosody_control_french_tts_tpu_torch.legacy.voc import Voc
+    from prosody_control_french_tts_tpu_torch.tts.fake import FakeBackend
+    from prosody_control_french_tts_tpu_torch.utils.wavio import write_wav
+    from prosody_control_french_tts_tpu_torch.viz.plotdata import compute_plot_data
+    from prosody_control_french_tts_tpu_torch.viz.server import VizService
+
+    t = np.arange(44100) / 44100
+    write_wav(tmp_path / "segment_ph1.wav", (0.4 * np.sin(2 * np.pi * 200 * t)).astype(np.float32), 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Voc(tmp_path, tmp_path, tmp_path / "out", tts=FakeBackend())
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bdd.compute_pitch_adjustments([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_plot_data(tmp_path / "segment_ph1.wav")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VizService({"natural": tmp_path})
+    assert compute_plot_data(tmp_path / "segment_ph1.wav", device="cpu")["sample_rate"] == 44100
+    assert VizService({"natural": tmp_path}, device="cpu").plot_data("natural", "segment_ph1")["duration"] == 1.0
+    assert Voc(tmp_path, tmp_path, tmp_path / "out", tts=FakeBackend(), device="cpu").device.type == "cpu"

@@ -129,6 +129,61 @@ def test_candidates_tie_order_and_padding():
     np.testing.assert_array_equal(strength.numpy()[1, 1:], 0)
 
 
+def test_library_builds_and_loads_once_under_concurrent_first_calls(monkeypatch):
+    """Threads that reach ``kernels.library`` together (the viewer's preload
+    pool) wait for one build and one load, and all get the same library."""
+    import ctypes
+    import sys
+    import threading
+    import time
+
+    from prosody_control_french_tts_tpu_torch.ops import kernels
+
+    builds, loads = [], []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)  # long enough for every thread to arrive meanwhile
+        return "libpcft_kernels_stub.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            f = type("FakeFn", (), {})()
+            setattr(self, name, f)
+            return f
+
+    def fake_cdll(path):
+        loads.append(path)
+        return FakeLib()
+
+    monkeypatch.setattr(kernels, "_LIB", None)
+    monkeypatch.setattr(kernels, "build", slow_build)
+    monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
+    n = 16
+    barrier = threading.Barrier(n)
+    got = [None] * n
+
+    def first_call(i):
+        barrier.wait(timeout=30)
+        got[i] = kernels.library()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=first_call, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1 and loads == ["libpcft_kernels_stub.so"]
+    assert got[0] is not None and all(g is got[0] for g in got)
+    assert got[0].pitch_candidates_launch.restype is ctypes.c_int
+    assert kernels.library() is got[0] and len(builds) == 1
+
+
 def test_viterbi_plain_padding_lanes_never_win():
     """Unvoiced picks come out as 0 Hz, voiced picks as one of the frame's
     voiced candidates."""

@@ -388,6 +388,11 @@ def test_train_stage_matches_jax(tokenizers, monkeypatch):
 
 
 def test_train_stage_refuses_checkpoints(tokenizers, tmp_path):
+    """Per-epoch checkpoints are ported (``core.checkpoint``): train_stage
+    with ``ckpt_dir`` no longer refuses and writes one step an epoch, as
+    the JAX package's does (``tests/test_torch_checkpoint.py`` holds them
+    to the trained weights)."""
     _, tt = tokenizers
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tcascade.train_stage(STAGE_PAIRS, tt, ckpt_dir=tmp_path, device="cpu")
+    cfg = tllm.LLMConfig(vocab_size=len(tt), dim=32, layers=1, heads=2, kv_heads=1, ffn=64, max_len=96, dtype=torch.float32)
+    tcascade.train_stage(STAGE_PAIRS, tt, cfg=cfg, epochs=1, ckpt_dir=tmp_path, device="cpu")
+    assert [p.name for p in tmp_path.iterdir()] == ["step_00000001"]
