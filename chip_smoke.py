@@ -209,7 +209,7 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     separator: ``train_ctc_aligner`` at the default geometry (dim 128, 2
     layers, 4 heads, 80 mels, V 47) on a corpus that ``build_natural_corpus``
     gathers from a voice of synthetic French segments (12 segments of up to
-    19.5 s, 3 epochs): the losses fall, ``ctc_loss`` counts 2 launches a step,
+    19.5 s, 3 epochs): the losses fall, ``ctc_loss`` counts 4 launches a step,
     the checkpoint reloads through ``CTCAligner(weights_path=...)`` and aligns
     every word, the first step on the card agrees with the CPU's (loss 1e-3
     relative; updated weights at most 2.5 lr apart, at most 5 % moved the
@@ -217,9 +217,11 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     gradient 1e-5 x max(1, loss / 100)) on every captured step and on edge
     cases (label_len 0 and 1, input_len < T, repeated labels, an infeasible
     alignment, one frame, S 1,025 / 2,049 / 4,095, and 4,097, which must
-    raise), and timed at the largest step (forward and backward launches as
+    raise), and timed at the largest step (the forward launch and the
+    backward's three, weights, chain and column sums, alone and together, as
     CUDA-graph replays, beside its plain loops and ``F.ctc_loss``, with its
-    bound and chain floors); ``pretrain_ctc.pretrain`` and
+    bound, chain floors, warps and the wrapper's host ms a call);
+    ``pretrain_ctc.pretrain`` and
     ``pretrain_masknet`` as the recipes stand, gates on; the Whisper recipe
     at ``synth_fr_config()`` cut to 192 sentences and 2 epochs, gates read
     and printed (the whole recipe: ``tools/aligner_training_phase.py``). Each
@@ -3716,13 +3718,38 @@ def ctc_loss_edge_cases(dev) -> int:
     return len(cases)
 
 
+def ctc_loss_host_ms(labels, V: int, dev, reps: int = 200) -> float:
+    """Host ms a call of the wrapper's set-up as the wrapper does it (the
+    layout, the numpy label columns and their pageable copy to the card),
+    over ``reps`` calls on an idle stream."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import ctc_loss
+
+    S = 2 * len(labels) + 1
+
+    def setup():
+        ctc_loss.plan(S)
+        torch.from_numpy(ctc_loss.host_meta(labels, 0, V)).to(dev)
+
+    for _ in range(3):
+        setup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        setup()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def ctc_loss_row(calls, launches: int, edge_cases: int, card: str, lib) -> dict:
-    """ctc_loss timed at the largest captured train_ctc call: the forward and
-    the backward launches alone as CUDA-graph replays, the plain version
-    (forward loop, backward loop) and F.ctc_loss(reduction="sum") forward and
-    backward on the same inputs, the bytes and operations bound and each
-    launch's chain floor."""
-    import numpy as np
+    """ctc_loss timed at the largest captured train_ctc call: the forward
+    launch and the backward's three (weights, chain, column sums), alone and
+    together, as CUDA-graph replays; the plain version (forward loop,
+    backward loop) and F.ctc_loss(reduction="sum") forward and backward on
+    the same inputs; the bytes and operations bound, each chain's floor, and
+    the wrapper's host set-up a call."""
     import torch
     import torch.nn.functional as F
 
@@ -3733,31 +3760,52 @@ def ctc_loss_row(calls, launches: int, edge_cases: int, card: str, lib) -> dict:
     T, V = lp.shape
     S = 2 * len(labels) + 1
     Tv = min(max(inp, 1), T)
+    pl = ctc_loss.plan(S)
+    Sp = pl.stride
     ext, skip = ctc_loss._states(torch.as_tensor(labels), 0)
-    col_ptr, col_states = ctc_loss._column_lists(ext, V)
-    meta = torch.cat([ext.int(), skip.int(), col_ptr, col_states]).to(dev)
-    alpha = torch.empty((T, S), dtype=torch.float32, device=dev)
+    meta = torch.from_numpy(ctc_loss.host_meta(labels, 0, V)).to(dev)
+    skip_d, col_ptr, col_states = meta[S:], meta[2 * S:], meta[2 * S + V + 1:]
+    alpha = torch.empty((Tv, Sp), dtype=torch.float32, device=dev)
+    planes = torch.empty((max(Tv - 1, 1), 4, Sp), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     go = torch.ones((), dtype=torch.float32, device=dev)
     dlogp = torch.empty((T, V), dtype=torch.float32, device=dev)
-    de = torch.empty((Tv, S), dtype=torch.float32, device=dev)
+    de = torch.empty((Tv, Sp), dtype=torch.float32, device=dev)
 
     def fwd():  # on the current stream: a graph capture runs it on its own
-        kernels.check(lib.ctc_loss_fwd_launch(lp.data_ptr(), meta.data_ptr(), meta[S:].data_ptr(), alpha.data_ptr(),
-                                              loss.data_ptr(), T, S, V, Tv, lab, kernels.stream_ptr(lp)), "ctc_loss_fwd")
+        kernels.check(lib.ctc_loss_fwd_launch(lp.data_ptr(), meta.data_ptr(), skip_d.data_ptr(), alpha.data_ptr(),
+                                              loss.data_ptr(), T, S, V, Tv, lab, pl.warps, Sp,
+                                              kernels.stream_ptr(lp)), "ctc_loss_fwd")
+
+    def weights():
+        kernels.check(lib.ctc_loss_weights_launch(alpha.data_ptr(), skip_d.data_ptr(), planes.data_ptr(), S, Tv, Sp,
+                                                  kernels.stream_ptr(lp)), "ctc_loss_weights")
+
+    def chain():
+        kernels.check(lib.ctc_loss_chain_launch(planes.data_ptr(), alpha.data_ptr(), skip_d.data_ptr(), go.data_ptr(),
+                                                de.data_ptr(), S, Tv, lab, pl.warps, Sp, kernels.stream_ptr(lp)),
+                      "ctc_loss_chain")
+
+    def columns():
+        kernels.check(lib.ctc_loss_columns_launch(de.data_ptr(), col_ptr.data_ptr(), col_states.data_ptr(),
+                                                  dlogp.data_ptr(), T, V, Tv, Sp, kernels.stream_ptr(lp)),
+                      "ctc_loss_columns")
 
     def bwd():
-        kernels.check(lib.ctc_loss_bwd_launch(alpha.data_ptr(), meta[S:].data_ptr(), meta[2 * S:].data_ptr(),
-                                              meta[2 * S + V + 1:].data_ptr(), go.data_ptr(), de.data_ptr(),
-                                              dlogp.data_ptr(), T, S, V, Tv, lab, kernels.stream_ptr(lp)), "ctc_loss_bwd")
+        weights()
+        chain()
+        columns()
 
     fwd()
+    bwd()
     ms_f = graph_ms(fwd, reps=10)
     ms_b = graph_ms(bwd, reps=10)
-    emit, skip_d = lp[:, ext.to(dev)], skip.to(dev)
-    plain_f = cuda_ms(lambda: ctc_loss.ctc_loss_forward_plain(emit, skip_d, inp, lab), reps=1, warmup=1)
-    a_plain, _ = ctc_loss.ctc_loss_forward_plain(emit, skip_d, inp, lab)
-    plain_b = cuda_ms(lambda: ctc_loss.ctc_loss_backward_plain(a_plain, ext, skip_d, T, V, lab, go), reps=1, warmup=1)
+    split = {name: graph_ms(fn, reps=10) for name, fn in (("weights", weights), ("chain", chain),
+                                                          ("columns", columns))}
+    emit, skip_e = lp[:, ext.to(dev)], skip.to(dev)
+    plain_f = cuda_ms(lambda: ctc_loss.ctc_loss_forward_plain(emit, skip_e, inp, lab), reps=1, warmup=1)
+    a_plain, _ = ctc_loss.ctc_loss_forward_plain(emit, skip_e, inp, lab)
+    plain_b = cuda_ms(lambda: ctc_loss.ctc_loss_backward_plain(a_plain, ext, skip_e, T, V, lab, go), reps=1, warmup=1)
     lab_t = torch.as_tensor(labels, device=dev)[None]
     il, tl = torch.tensor([inp], device=dev), torch.tensor([lab], device=dev)
     lib_f = cuda_ms(lambda: F.ctc_loss(lp[:, None], lab_t, il, tl, reduction="sum"), reps=10, warmup=2)
@@ -3771,28 +3819,50 @@ def ctc_loss_row(calls, launches: int, edge_cases: int, card: str, lib) -> dict:
     steps = 100_000
     step_ns = cuda_ms(lambda: kernels.check(lib.ctc_loss_latency_probe(out.data_ptr(), steps, kernels.stream_ptr(lp)),
                                             "ctc_loss_latency_probe"), reps=3) * 1e6 / steps
-    alu_ns = alu_latency_ns(lib)
+    mism = torch.zeros(2, dtype=torch.int64, device=dev)
+    kernels.check(lib.ctc_loss_exact_checks(mism.data_ptr(), kernels.stream_ptr(mism)), "ctc_loss_exact_checks")
+    if mism.tolist() != [0, 0]:
+        raise SystemExit(f"ctc_loss: the kernels' log1p differs from log1pf on {int(mism[0])} floats in [0, 1], "
+                         f"lae(x, NEG)'s shortcut on {int(mism[1])} floats")
+    lat = viterbi_chain_floor(lib, 2, 1)
+    alu_ns, shfl_ns = lat["alu_ns"], lat["shfl_ns"]
+    # the first design's floors: one state's step; three dependent float ops a frame
     floor_f = (Tv - 1) * step_ns / 1e6
     floor_b = (Tv - 1) * 3 * alu_ns / 1e6
+    # this design's: a lane's first state waits for a shuffle before its
+    # step; the adjoint's two multiplies and two adds, and a shuffle
+    design_f = (Tv - 1) * (step_ns + shfl_ns) / 1e6
+    design_b = (Tv - 1) * (4 * alu_ns + shfl_ns) / 1e6
     bytes_f, bytes_b = T * V * 4 + len(labels) * 4 + 4, T * V * 4 + 4
     ops_f, ops_b = (Tv - 1) * S * CTC_LOSS_OPS["fwd"], (Tv - 1) * S * CTC_LOSS_OPS["bwd"]
     bound_f = max(bytes_f / HBM_BYTES_PER_S, ops_f / PEAK_FLOPS["f32"]) * 1e3
     bound_b = max(bytes_b / HBM_BYTES_PER_S, ops_b / PEAK_FLOPS["f32"]) * 1e3
     by = "operations" if ops_f / PEAK_FLOPS["f32"] > bytes_f / HBM_BYTES_PER_S else "bytes"
+    host_ms = ctc_loss_host_ms(labels, V, dev)
     row = dict(KERNEL_CTC_LOSS, launches=launches, max_abs_err=0.0, ms=ms_f + ms_b, plain_ms=plain_f + plain_b,
                bound_ms=bound_f + bound_b, bound_by=by, library_ms=lib_f + lib_b, check="pass",
-               ms_fwd=ms_f, ms_bwd=ms_b, plain_ms_fwd=plain_f, plain_ms_bwd=plain_b, library_ms_fwd=lib_f,
+               bound_note="a latency chain bounds it first: chain_floor_ms_fwd + chain_floor_ms_bwd",
+               ms_fwd=ms_f, ms_bwd=ms_b, ms_bwd_weights=split["weights"], ms_bwd_chain=split["chain"],
+               ms_bwd_columns=split["columns"], plain_ms_fwd=plain_f, plain_ms_bwd=plain_b, library_ms_fwd=lib_f,
                library_ms_bwd=lib_b, bound_ms_fwd=bound_f, bound_ms_bwd=bound_b, chain_floor_ms_fwd=floor_f,
-               chain_floor_ms_bwd=floor_b, shape_T_V_S_Tv=[T, V, S, Tv], calls_checked=len(calls),
-               edge_cases_checked=edge_cases, states_per_thread=lib.ctc_loss_states_per_thread(S))
-    print(f"kernel ctc_loss: ms={ms_f + ms_b:.4f} (forward {ms_f:.4f} + backward {ms_b:.4f}, CUDA-graph replays at "
-          f"[T, V] [{T}, {V}], S {S}, {Tv} frames: the largest train_ctc step of phase 22) launches={launches} "
-          f"bound_ms={bound_f + bound_b:.6f} ({by}: forward {bytes_f} bytes, {ops_f} float32 operations; backward "
-          f"{bytes_b} bytes, {ops_b} operations) chain_floor_ms forward {floor_f:.4f} (({Tv} - 1) x {step_ns:.2f} ns, "
-          f"one state's step measured by ctc_loss_latency_probe) backward {floor_b:.4f} (({Tv} - 1) x 3 x "
-          f"{alu_ns:.2f} ns) plain_ms={plain_f + plain_b:.1f} (forward {plain_f:.1f}, backward {plain_b:.1f}) "
-          f"library_ms={lib_f + lib_b:.4f} (F.ctc_loss sum: forward {lib_f:.4f}, backward {lib_b:.4f}) "
-          f"max_abs_err within limits on {len(calls)} captured calls and {edge_cases} edge cases card={card}")
+               chain_floor_ms_bwd=floor_b, design_floor_ms_fwd=design_f, design_floor_ms_bwd=design_b,
+               shape_T_V_S_Tv=[T, V, S, Tv], calls_checked=len(calls), edge_cases_checked=edge_cases,
+               states_per_lane=ctc_loss.STATES_PER_LANE, warps_per_block=pl.warps, cluster=ctc_loss.CLUSTER,
+               host_ms_per_call=host_ms)
+    print(f"kernel ctc_loss: ms={ms_f + ms_b:.4f} (forward {ms_f:.4f} + backward {ms_b:.4f}: weights "
+          f"{split['weights']:.4f}, chain {split['chain']:.4f}, column sums {split['columns']:.4f} alone; CUDA-graph "
+          f"replays at [T, V] [{T}, {V}], S {S}, {Tv} frames: the largest train_ctc step of phase 22; both "
+          f"chains {ctc_loss.CLUSTER} x {pl.warps} warps of {ctc_loss.STATES_PER_LANE} states a lane) "
+          f"launches={launches} bound_ms={bound_f + bound_b:.6f} ({by}: forward {bytes_f} bytes, "
+          f"{ops_f} float32 operations; backward {bytes_b} bytes, {ops_b} operations; a latency chain bounds it "
+          f"first) chain_floor_ms forward {floor_f:.4f} (({Tv} - 1) x {step_ns:.2f} ns, one state's step measured "
+          f"by ctc_loss_latency_probe) backward {floor_b:.4f} (({Tv} - 1) x 3 x {alu_ns:.2f} ns); with this "
+          f"design's shuffle: forward {design_f:.4f} (+ {shfl_ns:.2f} ns a frame) backward {design_b:.4f} "
+          f"(({Tv} - 1) x (4 x {alu_ns:.2f} + {shfl_ns:.2f}) ns) plain_ms={plain_f + plain_b:.1f} (forward "
+          f"{plain_f:.1f}, backward {plain_b:.1f}) library_ms={lib_f + lib_b:.4f} (F.ctc_loss sum: forward "
+          f"{lib_f:.4f}, backward {lib_b:.4f}) host set-up a call {host_ms:.4f} ms max_abs_err within limits on {len(calls)} captured calls and {edge_cases} edge "
+          f"cases; the kernels' log1p equal to log1pf on every float in [0, 1], the blanks' lae(x, NEG) to lae on "
+          f"every float card={card}")
     return row
 
 
@@ -3898,7 +3968,7 @@ def aligner_training_phase(card: str, lib, seed: int = 0) -> dict:
             train_s = time.perf_counter() - t0
         launches = ctc_loss.launches
         steps = TRAIN_CTC_EPOCHS * TRAIN_CTC_SEGMENTS
-        if launches != 2 * steps or len(cap.calls) != steps:
+        if launches != 4 * steps or len(cap.calls) != steps:
             raise SystemExit(f"train_ctc: {launches} ctc_loss launches and {len(cap.calls)} calls for {steps} steps")
         if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise SystemExit(f"train_ctc: losses {losses}")
@@ -3920,7 +3990,7 @@ def aligner_training_phase(card: str, lib, seed: int = 0) -> dict:
               f"{TRAIN_CTC_EPOCHS} epochs at the default geometry: {train_s:.3f} s (features included), "
               f"{clock.ms_per_step(TRAIN_CTC_SEGMENTS):.2f} ms a step after the first epoch ({clock.ms_per_step():.2f} "
               f"with it: each new length's first convolutions and products are set up then; CUDA events), losses {[round(x, 3) for x in losses]}; ctc_loss launches "
-              f"{launches} = 2 x {steps} steps; [T, S] from {min(shapes)} to {max(shapes)}; held to plain: loss "
+              f"{launches} = 4 x {steps} steps; [T, S] from {min(shapes)} to {max(shapes)}; held to plain: loss "
               f"rel {worst[0]:.2e}, gradient {worst[1]:.2e} of its scale; the reloaded checkpoint aligned every "
               f"word; first step card vs CPU: loss {cvc['loss_card']:.5f} vs {cvc['loss_cpu']:.5f} (rel "
               f"{cvc['loss_rel']:.2e}), weights max |diff| {cvc['weights_max_diff']:.2e}, share moved the other "

@@ -9,8 +9,8 @@ downloaded:
   ``audio`` + ``transcription`` directories, or the natural corpus built by
   ``audio.corpus.build_natural_corpus``), each clip cut at 20 s;
 - training: ``CTCAligner.make_train_step`` on each utterance's log-mel
-  (Adam, the CTC loss: the kernel pair ``csrc/ctc_loss.cu`` on the card,
-  two launches a step), the utterances in the order of
+  (Adam, the CTC loss: the kernels of ``csrc/ctc_loss.cu`` on the card,
+  four launches a step), the utterances in the order of
   ``np.random.default_rng(seed).permutation`` each epoch;
 - output: float32 weights in the JAX layout (``ctc_aligner.npz``), loadable
   by either package (``aligner_options: {weights_path: …}``).

@@ -7,11 +7,16 @@ In the JAX package ``align/ctc.py:ctc_loss`` is a ``lax.scan`` of
 ``logaddexp`` over frames and its gradient JAX's reverse-mode autodiff of
 it: XLA code, not a Pallas kernel. As PyTorch operations that is about six
 launches a frame each way, so on a CUDA tensor :func:`ctc_loss` launches the
-hand-written kernels, one for the forward (alpha of every frame and the
-loss) and one for the backward (the adjoint of the recursion, into
-d loss / d log_probs). On a CPU tensor it runs the plain versions
+hand-written kernels: one for the forward (alpha of every advanced frame
+and the loss, on a cluster of blocks with no barrier a frame) and three for
+the backward (the adjoint's multipliers from alpha across the grid, the
+adjoint chain on a cluster, the per-(frame, label column) sums across the
+grid), four a call in all. On a CPU tensor it runs the plain versions
 (:func:`ctc_loss_forward_plain`, :func:`ctc_loss_backward_plain`), the same
-recursions as PyTorch loops over frames.
+recursions as PyTorch loops over frames. :func:`plan` gives the warps and
+the row stride of the kernels' one layout (2 states a lane on a cluster of
+4 blocks), and :func:`host_meta` builds the states' labels, skips and
+label columns on the host; both are plain functions.
 
 The gradient is JAX's, not PyTorch's: JAX's ``logaddexp``'s derivative is
 exp(x − lae(x, y)) for each argument, so where both ends of the label
@@ -26,14 +31,20 @@ through the log-softmax.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from . import kernels
 from .ctc_viterbi import NEG, expand_labels
 
-MAX_STATES = 4096  # 2L + 1 at most: 2,047 labels (one block of 1,024 threads, 4 states a thread)
-MAX_SMEM = 232448  # dynamic shared memory a block may ask for on an H100 (the backward's: 28 S + 4 (V + 1) bytes)
+# the kernels' layout (csrc/ctc_loss.cu kK, kCluster, kMaxWarps): 2 states a
+# lane on a cluster of 4 blocks of up to 16 warps, the fastest of the layouts
+# timed at S 413, 601 and 1,201 on an H100 (PERF.md)
+STATES_PER_LANE, CLUSTER, MAX_WARPS = 2, 4, 16
+STATES_PER_WARP = STATES_PER_LANE * 32 * CLUSTER  # the states one more warp a block adds: 256
+MAX_STATES = MAX_WARPS * STATES_PER_WARP  # 4,096: 2L + 1 at most, 2,047 labels
 
 launches = 0  # kernel launches, forward and backward (CUDA path only)
 
@@ -145,47 +156,83 @@ class _PlainLoss(torch.autograd.Function):
         return ctc_loss_backward_plain(alpha, ext, skip, T, V, ctx.label_len, grad_out), None, None, None, None
 
 
-def _column_lists(ext: torch.Tensor, V: int):
-    """(col_ptr [V + 1], col_states [S]) int32 on the host: the states of each
-    label column, in state order (the backward's per-column sums)."""
-    e = ext.numpy()
-    order = np.argsort(e, kind="stable").astype(np.int32)
-    ptr = np.zeros(V + 1, np.int32)
-    np.cumsum(np.bincount(e, minlength=V), out=ptr[1:])
-    return torch.from_numpy(ptr), torch.from_numpy(order)
+class Plan(NamedTuple):
+    """How both chains lay out S states: the warps W of each of the
+    cluster's blocks, and the row stride of alpha, the weight planes and d e
+    (W · 256, a multiple of 64)."""
+
+    S: int
+    warps: int
+    stride: int
+
+
+def plan(S: int) -> Plan:
+    """The kernels' layout of S states (1 <= S <= ``MAX_STATES``): lane l of
+    warp w of block b holds states ((b W + w) 32 + l) 2 and the one after,
+    with W = ceil(S / 256), the fewest warps a block that hold S."""
+    if not 1 <= S <= MAX_STATES:
+        raise ValueError(f"ctc_loss: {S} states outside [1, {MAX_STATES}]")
+    warps = -(-S // STATES_PER_WARP)
+    return Plan(S, warps, warps * STATES_PER_WARP)
+
+
+def host_meta(labels, blank: int, V: int) -> np.ndarray:
+    """labels [L] → int32 [ext (S), skip (S), col_ptr (V + 1), col_states
+    (S)] on the host: each state's label, whether it may come from s − 2, and
+    the states of each label column in state order (the backward's column
+    sums). Raises if a label or the blank lies outside [0, V)."""
+    lab = np.asarray(labels, dtype=np.int64).reshape(-1)
+    S = 2 * lab.size + 1
+    ext = np.full(S, blank, np.int64)
+    ext[1::2] = lab
+    if ext.min() < 0 or ext.max() >= V:
+        raise ValueError(f"ctc_loss: a label lies outside [0, {V})")
+    skip = np.zeros(S, np.int64)
+    skip[3::2] = lab[1:] != lab[:-1]
+    col_ptr = np.zeros(V + 1, np.int64)
+    np.cumsum(np.bincount(ext, minlength=V), out=col_ptr[1:])
+    col_states = np.argsort(ext, kind="stable")
+    return np.concatenate([ext, skip, col_ptr, col_states]).astype(np.int32)
 
 
 class _KernelLoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, log_probs, meta, T: int, S: int, V: int, Tv: int, label_len: int):
+    def forward(ctx, log_probs, meta, T: int, V: int, Tv: int, label_len: int, pl: Plan):
         global launches
         lib = kernels.library()
-        alpha = torch.empty((T, S), dtype=torch.float32, device=log_probs.device)
+        S, Sp = pl.S, pl.stride
+        alpha = torch.empty((Tv, Sp), dtype=torch.float32, device=log_probs.device)
         loss = torch.empty((), dtype=torch.float32, device=log_probs.device)
-        ext_d, skip_d = meta[:S], meta[S:2 * S]
-        rc = lib.ctc_loss_fwd_launch(log_probs.data_ptr(), ext_d.data_ptr(), skip_d.data_ptr(), alpha.data_ptr(),
-                                     loss.data_ptr(), T, S, V, Tv, label_len, kernels.stream_ptr(log_probs))
+        rc = lib.ctc_loss_fwd_launch(log_probs.data_ptr(), meta.data_ptr(), meta[S:].data_ptr(), alpha.data_ptr(),
+                                     loss.data_ptr(), T, S, V, Tv, label_len, pl.warps, Sp,
+                                     kernels.stream_ptr(log_probs))
         kernels.check(rc, "ctc_loss_fwd")
         launches += 1
         ctx.save_for_backward(alpha, meta)
-        ctx.dims = (T, S, V, Tv, label_len)
+        ctx.dims = (T, V, Tv, label_len, pl)
         return loss
 
     @staticmethod
     def backward(ctx, grad_out):
         global launches
         alpha, meta = ctx.saved_tensors
-        T, S, V, Tv, label_len = ctx.dims
+        T, V, Tv, label_len, pl = ctx.dims
         lib = kernels.library()
+        dev, S, Sp = alpha.device, pl.S, pl.stride
+        stream = kernels.stream_ptr(alpha)
         go = grad_out.to(torch.float32).contiguous()
-        de = torch.empty((Tv, S), dtype=torch.float32, device=alpha.device)  # each frame's state adjoints
-        dlogp = torch.empty((T, V), dtype=torch.float32, device=alpha.device)
-        skip_d, col_ptr, col_states = meta[S:2 * S], meta[2 * S:2 * S + V + 1], meta[2 * S + V + 1:]
-        rc = lib.ctc_loss_bwd_launch(alpha.data_ptr(), skip_d.data_ptr(), col_ptr.data_ptr(), col_states.data_ptr(),
-                                     go.data_ptr(), de.data_ptr(), dlogp.data_ptr(), T, S, V, Tv, label_len,
-                                     kernels.stream_ptr(alpha))
-        kernels.check(rc, "ctc_loss_bwd")
-        launches += 1
+        skip_d, col_ptr, col_states = meta[S:], meta[2 * S:], meta[2 * S + V + 1:]
+        planes = torch.empty((max(Tv - 1, 1), 4, Sp), dtype=torch.float32, device=dev)  # w12, w2, w1, wa
+        kernels.check(lib.ctc_loss_weights_launch(alpha.data_ptr(), skip_d.data_ptr(), planes.data_ptr(), S, Tv, Sp,
+                                                  stream), "ctc_loss_weights")
+        de = torch.empty((Tv, Sp), dtype=torch.float32, device=dev)  # each frame's state adjoints
+        kernels.check(lib.ctc_loss_chain_launch(planes.data_ptr(), alpha.data_ptr(), skip_d.data_ptr(), go.data_ptr(),
+                                                de.data_ptr(), S, Tv, label_len, pl.warps, Sp, stream),
+                      "ctc_loss_chain")
+        dlogp = torch.empty((T, V), dtype=torch.float32, device=dev)
+        kernels.check(lib.ctc_loss_columns_launch(de.data_ptr(), col_ptr.data_ptr(), col_states.data_ptr(),
+                                                  dlogp.data_ptr(), T, V, Tv, Sp, stream), "ctc_loss_columns")
+        launches += 3
         return dlogp, None, None, None, None, None, None
 
 
@@ -204,7 +251,7 @@ def ctc_loss(log_probs: torch.Tensor, labels, input_len: int, label_len: int, bl
     card pass them on the host: they are read there), input_len / label_len
     the valid lengths → scalar loss, differentiable with respect to
     log_probs. A CUDA tensor goes through the kernels of
-    ``csrc/ctc_loss.cu`` (one launch forward, one backward), a CPU tensor
+    ``csrc/ctc_loss.cu`` (one launch forward, three backward), a CPU tensor
     through the plain version. More than ``MAX_STATES`` states raises."""
     labels = torch.as_tensor(labels)
     if log_probs.device.type == "cpu":
@@ -217,11 +264,8 @@ def ctc_loss(log_probs: torch.Tensor, labels, input_len: int, label_len: int, bl
     if S > MAX_STATES:
         raise ValueError(f"ctc_loss: {S} states (2L + 1) exceed the kernel's {MAX_STATES}: at most "
                          f"{(MAX_STATES - 1) // 2} labels a sequence")
-    if T * max(V, S) >= 2**31 or 28 * S + 4 * (V + 1) > MAX_SMEM:
+    pl = plan(S)
+    if T * max(V, 4 * pl.stride) >= 2**31:
         raise ValueError(f"ctc_loss: [T, V] {(T, V)} with {S} states not taken")
-    ext, skip = _states(labels.detach().cpu(), blank)
-    if bool(((ext < 0) | (ext >= V)).any()):
-        raise ValueError(f"ctc_loss: a label lies outside [0, {V})")
-    col_ptr, col_states = _column_lists(ext, V)
-    meta = torch.cat([ext.int(), skip.int(), col_ptr, col_states]).to(log_probs.device)
-    return _KernelLoss.apply(log_probs.contiguous(), meta, T, S, V, _frames(T, input_len), int(label_len))
+    meta = torch.from_numpy(host_meta(labels.detach().cpu().numpy(), blank, V)).to(log_probs.device)
+    return _KernelLoss.apply(log_probs.contiguous(), meta, T, V, _frames(T, input_len), int(label_len), pl)

@@ -108,19 +108,21 @@ _SIGNATURES = {
     "ctc_viterbi_tile_frames": (_I,),
     # T, S, states a thread, blocks -> 32-bit words of a sequence's packed pointers (returns a 64-bit int)
     "ctc_viterbi_back_words": (_I, _I, _I, _I),
-    # log_probs, ext, skip, alpha, loss, T, S, V, frames advanced, label_len, stream
-    "ctc_loss_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
-    # alpha, skip, col_ptr, col_states, grad_out, de (scratch [Tv, S]), dlogp, T, S, V, frames advanced, label_len,
-    # stream
-    "ctc_loss_bwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    # log_probs, ext, skip, alpha, loss, T, S, V, frames advanced, label_len, warps a block, row stride, stream
+    "ctc_loss_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP),
+    # alpha, skip, planes, S, frames advanced, row stride, stream
+    "ctc_loss_weights_launch": (_VP, _VP, _VP, _I, _I, _I, _VP),
+    # planes, alpha, skip, grad_out, de, S, frames advanced, label_len, warps a block, row stride, stream
+    "ctc_loss_chain_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    # de, col_ptr, col_states, dlogp, T, V, frames advanced, row stride, stream
+    "ctc_loss_columns_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
     # () -> states the kernels take at most
     "ctc_loss_max_states": (),
-    # S, V -> bytes of dynamic shared memory of the backward (returns a 64-bit int)
-    "ctc_loss_bwd_smem_bytes": (_I, _I),
-    # S -> states a thread (0: more than the kernels take)
-    "ctc_loss_states_per_thread": (_I,),
     # out, steps, stream: one state's forward step as a dependent chain in one thread
     "ctc_loss_latency_probe": (_VP, _I, _VP),
+    # counts (2 uint64, zeroed), stream: the kernels' branch-free log1p against log1pf on every float in [0, 1],
+    # and their lae(x, NEG) shortcut against lae on every float
+    "ctc_loss_exact_checks": (_VP, _VP),
     # q, k, v, o, l, m, plan, n_plan, B, H, KVH, L, hd, strides (12 int64, host), scale, dtype, stream
     "flash_attn_fwd_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
     # q, k, v, o, do, l, m, di, lse2, dk_part, dv_part, dq, dk, dv, plan_q, plan_k, n_plan, B, H, KVH, L, hd,
@@ -132,7 +134,7 @@ _SIGNATURES = {
 }
 
 
-_RESTYPES = {"ctc_viterbi_back_words": ctypes.c_longlong, "ctc_loss_bwd_smem_bytes": ctypes.c_longlong}  # every other function returns an int
+_RESTYPES = {"ctc_viterbi_back_words": ctypes.c_longlong}  # every other function returns an int
 
 
 def resolve_device(device) -> torch.device:

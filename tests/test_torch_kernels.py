@@ -1266,6 +1266,15 @@ CTC_LOSS_CASES = [
     (2200, 48, 1024, 2200, 1024, None),
     (4200, 48, 2047, 4200, 2047, None),
 ]
+# S just past each boundary of the kernels' layout (2 states a lane on 4
+# blocks: each warp a block adds 256 states), up to S 4,095
+CTC_LOSS_LAYOUT_CASES = [
+    (300, 47, 128, 300, 128, None),      # S 257: 2 warps a block
+    (800, 47, 384, 700, 380, None),      # S 769: 4 warps a block
+    (1200, 48, 1024, 1200, 1024, None),  # S 2,049: 9 warps a block
+    (2000, 48, 1920, 2000, 1920, None),  # S 3,841: 16 warps a block
+    (4100, 48, 2047, 4100, 2047, None),  # S 4,095
+]
 
 
 def _ctc_loss_inputs(T, V, L, seed, labels=None):
@@ -1277,13 +1286,15 @@ def _ctc_loss_inputs(T, V, L, seed, labels=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CTC_LOSS_CASES, ids=lambda c: f"T{c[0]}-V{c[1]}-L{c[2]}-in{c[3]}-lab{c[4]}")
+@pytest.mark.parametrize("case", CTC_LOSS_CASES + CTC_LOSS_LAYOUT_CASES,
+                         ids=lambda c: f"T{c[0]}-V{c[1]}-L{c[2]}-in{c[3]}-lab{c[4]}")
 def test_ctc_loss_kernel_matches_plain(cuda, case):
     """Loss within 1e-5 relative, d loss / d log_probs within 1e-5 · max(1,
     loss / 100) absolute, or 1e-5 of its largest entry on an infeasible
     alignment (the same float32 recursion; exp and log1p may differ in the
     last bit, and the rounding of α grows with its size, about the loss),
-    two launches a call."""
+    four launches a call (the forward; the weights, the chain and the column
+    sums)."""
     T, V, L, inp, lab, labels = case
     lp, labels = _ctc_loss_inputs(T, V, L, T + L, labels)
     want_lp = lp.to(cuda).requires_grad_(True)
@@ -1294,11 +1305,23 @@ def test_ctc_loss_kernel_matches_plain(cuda, case):
     got = ctc_loss.ctc_loss(got_lp, labels, inp, lab)
     got.backward()
     torch.cuda.synchronize()
-    assert ctc_loss.launches == n0 + 2
+    assert ctc_loss.launches == n0 + 4
     w, g = float(want), float(got)
     assert abs(g - w) <= 1e-5 * abs(w), (g, w)
     scale = max(1.0, float(want_lp.grad.abs().max())) if w > 1e29 else max(1.0, abs(w) / 100.0)
     assert float((got_lp.grad - want_lp.grad).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_ctc_loss_shortcuts_are_exact(cuda):
+    """The kernels' branch-free log1p gives log1pf's bits on every float in
+    [0, 1] (the arguments exp(-|d|) takes), and the blanks' second logaddexp
+    lae(x, NEG)'s on every float."""
+    from prosody_control_french_tts_tpu_torch.ops import kernels
+
+    n = torch.zeros(2, dtype=torch.int64, device=cuda)
+    kernels.check(kernels.library().ctc_loss_exact_checks(n.data_ptr(), kernels.stream_ptr(n)), "exact checks")
+    assert n.tolist() == [0, 0]
 
 
 @pytest.mark.gpu
