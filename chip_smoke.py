@@ -5,9 +5,10 @@ standalone frame and cumsum kernels, the LLM
 serving path, the LLM training path (LoRA fine-tuning, at L 512 with
 kernel G and at L 1024 / 768 with the flash attention), the acoustic
 aligners (Whisper, CTC) alone and in the eight-step pipeline, the break
-predictors' serving path (the BERT tagger behind the SSML HTTP service), and
-the contextual POS tagger with the evaluation layer, and the training
-halves of the aligners and the separator.
+predictors' serving path (the BERT tagger behind the SSML HTTP service),
+the contextual POS tagger with the evaluation layer, the training
+halves of the aligners and the separator, and the parallel layer over a
+one-rank process group.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -254,11 +255,24 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     greedy tokens, timed after 4 of warm-up, equal to the teacher-forced
     argmax). Alone:
     ``tools/cli_phase.py``.
+24. (run at the end of the training phases, on phase 11's 7B trainer) the
+    parallel layer over a one-rank ``nccl`` group: ``initialize()`` without
+    the ``PCFT_*`` variables returns False, ``make_mesh(1, 1)`` makes the
+    group; ``measure_sharded`` on phase 2's voice (prepared on the host)
+    bit-equal to ``run_measure_device``, A and B once each, both timed;
+    ``production_data_mesh()`` None with one card; ``shard_train_inputs`` +
+    ``make_train_step`` on the 7B trainer, restored to the same adapters and
+    optimizer state as an unsharded step: the first loss and the updated
+    adapters bit-equal (else within 1e-6 relative, printed), G 28 + 28 and
+    H 1 + 1 launches a step, ms a step of both and the peak memory; the
+    group destroyed. Alone (it builds its own 7B trainer):
+    ``tools/parallel_phase.py``.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fifteen entries (mask_ema, ctc_viterbi and
 ctc_loss, which replace no TPU kernel, among them; A's and B's rows carry
-``cli_launches``, F's the converted 7B tree's), and last ``{"ok": true,
+``cli_launches``, F's the converted 7B tree's; A's, B's, G's and H's
+``parallel_launches``, phase 24's), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -1914,13 +1928,15 @@ def frozen_fingerprint(model) -> dict:
     return {k: float(v.detach().sum(dtype=torch.float64)) for k, v in leaves.items()}
 
 
-def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: bool, dot_peak: bool = False):
+def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: bool, dot_peak: bool = False, keep: bool = False):
     """init_train + make_train_step on the card, one warm step then
     TRAIN_STEPS more on a repeated batch; the checks of phases 11 and 14: the
     attention kernel of ``cfg.attn_impl`` counted layers x steps each way, the
     other attention kernel and the dot path never, H once a step each way.
     With ``dot_peak``, one more step through the dot path (the [B, H, L, L]
-    scores in device memory) on the same model, for its peak memory. Returns
+    scores in device memory) on the same model, for its peak memory. With
+    ``keep``, the stats carry the trainer itself under "trainer" (model,
+    optimizer, state, ids, mask) for phase 24. Returns
     (launch counts of all the steps, captured tensors for the kernel checks,
     times, a function that profiles one more step and prints its split).
     The split is taken last of all: once the trainers have run, torch.profiler
@@ -2014,6 +2030,8 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
     captured = dict(q=q.detach().contiguous(), k=k.detach().contiguous(), v=v.detach().contiguous(), dout=dout.contiguous(),
                     h=h.detach().contiguous(), w=w.detach(), tgt=tgt.detach().to(torch.int32).contiguous(), g=g.float().contiguous())
     stats = dict(warm_ms=warm_ms, tokens_per_s=B * L / warm_ms * 1e3, cold_ms=cold_ms, peak_gb=peak_gb, dot_peak_gb=dot_peak_gb, losses=losses)
+    if keep:
+        stats["trainer"] = (model, tx, state, ids, mask)
 
     def split_step():
         # one more step under torch.profiler; the closure keeps the trainer alive until then
@@ -2524,10 +2542,12 @@ def flash_phase(args, card: str, free) -> tuple:
     return rows, (split7, splitb), (stats7, statsb)
 
 
-def train_phases(args, card: str) -> list:
-    """Phases 11-14 of the module docstring. Returns the rows of G forward, G
-    backward, H forward, H backward and the flash attention's forward and
-    backward for the ``kernels`` line."""
+def train_phases(args, card: str, prep) -> tuple[list, dict]:
+    """Phases 11-14 of the module docstring, and phase 24 on phase 11's 7B
+    trainer and ``prep`` (the measure voice, prepared on the host). Returns
+    the rows of G forward, G backward, H forward, H backward and the flash
+    attention's forward and backward for the ``kernels`` line, and phase
+    24's results."""
     import dataclasses
     import gc
 
@@ -2542,7 +2562,7 @@ def train_phases(args, card: str) -> list:
     # -- 11. trainers ----------------------------------------------------------
     free()  # the serving trees are gone: return their blocks before the 7B trainer
     cfg7 = dataclasses.replace(llm.LLMConfig.qwen25_7b(), attn_impl="vmem", fused_qkv=True, lora_rank=8)
-    counts7, cap7, stats7, split7 = run_trainer("7B", cfg7, 4, 512, args.seed, card, scan=False)
+    counts7, cap7, stats7, split7 = run_trainer("7B", cfg7, 4, 512, args.seed, card, scan=False, keep=True)
     free()
     bcfg = llm.LLMConfig(vocab_size=32768, dim=896, layers=12, heads=14, kv_heads=2, ffn=2432, max_len=512, lora_rank=8,
                          attn_impl="vmem", fused_qkv=True)
@@ -2591,13 +2611,204 @@ def train_phases(args, card: str) -> list:
     for split in (split7, splitb, *fa_splits):
         split()
     del split7, splitb, fa_splits
+
+    # -- 24. the parallel layer, on the 7B trainer of phase 11 -----------------
+    par = parallel_phase(card, prep, stats7.pop("trainer"))
+    for row in rows:
+        if row["name"] in par["launches"]:
+            row["parallel_launches"] = par["launches"][row["name"]]
     free()
     print(f"train summary: 7B {stats7['warm_ms']:.1f} ms per step, {stats7['tokens_per_s']:.1f} tokens/s, peak {stats7['peak_gb']:.2f} GB; "
           f"bench geometry {statsb['warm_ms']:.1f} ms per step, {statsb['tokens_per_s']:.1f} tokens/s, peak {statsb['peak_gb']:.2f} GB; "
           f"7B L 1024 flash {stats7f['warm_ms']:.1f} ms per step, {stats7f['tokens_per_s']:.1f} tokens/s, peak {stats7f['peak_gb']:.2f} GB "
           f"(dot path {stats7f['dot_peak_gb']:.2f} GB); bench geometry L 768 flash {statsbf['warm_ms']:.1f} ms per step, "
           f"{statsbf['tokens_per_s']:.1f} tokens/s, peak {statsbf['peak_gb']:.2f} GB; card={card}")
-    return rows
+    return rows, par
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer (phase 24)
+# ---------------------------------------------------------------------------
+
+
+def build_7b_trainer(seed: int, card: str):
+    """Phase 11's 7B trainer made anew (for ``tools/parallel_phase.py``):
+    (model, optimizer, state, ids, mask), its cost printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm, training
+
+    cfg = dataclasses.replace(llm.LLMConfig.qwen25_7b(), attn_impl="vmem", fused_qkv=True, lora_rank=8)
+    t0 = time.perf_counter()
+    model, tx, state = training.init_train(cfg, seed=seed, lr=1e-3, frozen_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(1, cfg.vocab_size, size=(4, 512)).astype(np.int32)).cuda()
+    mask = torch.ones((4, 512), dtype=torch.float32, device="cuda")
+    print(f"parallel: built a 7B trainer for the phase in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; card={card}")
+    return model, tx, state, ids, mask
+
+
+def parallel_phase(card: str, prep, trainer, device="cuda") -> dict:
+    """Phase 24: the parallel layer over a one-rank nccl group.
+    ``initialize()`` without the environment; ``make_mesh(1, 1)`` makes the
+    group; ``measure_sharded`` on ``prep`` bit-equal to ``run_measure_device``
+    (A and B once each); the production data mesh off with one card;
+    ``shard_train_inputs`` + ``make_train_step`` on ``trainer`` (phase 11's
+    7B trainer: model, optimizer, state, ids, mask) from the same adapters
+    and optimizer state as an unsharded step: first loss and updated
+    adapters bit-equal (else within 1e-6 relative, printed), G 28 + 28 and H
+    1 + 1 launches; ms a step of both and the sharded steps' peak memory;
+    the group destroyed. Returns the launches of A, B, G and H on this path.
+    ``device="cpu"`` rehearses the phase's control flow at a small size with
+    the kernels' plain versions (a gloo group; the launch counts stay 0 and
+    are not checked)."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from prosody_control_french_tts_tpu_torch.models import training
+    from prosody_control_french_tts_tpu_torch.ops import candidates, viterbi
+    from prosody_control_french_tts_tpu_torch.ops.pitch import PitchParams
+    from prosody_control_french_tts_tpu_torch.parallel import make_mesh
+    from prosody_control_french_tts_tpu_torch.parallel.distributed import initialize
+    from prosody_control_french_tts_tpu_torch.parallel.measure_sharded import measure_sharded
+    from prosody_control_french_tts_tpu_torch.parallel.mesh import production_data_mesh
+    from prosody_control_french_tts_tpu_torch.prosody.measure import run_measure_device
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    if any(os.environ.get(v) for v in ("PCFT_NUM_PROCESSES", "PCFT_COORDINATOR", "PCFT_PROCESS_ID")):
+        raise SystemExit("parallel: a PCFT_* process variable is set; the phase runs one process")
+    if initialize() is not False or dist.is_initialized():
+        raise SystemExit("parallel: initialize() without the environment started a process group")
+    mesh = make_mesh(1, 1, device=dev)
+    backend = dist.get_backend()
+    print(f"parallel: initialize() False; make_mesh(1, 1) made a {backend} group of {dist.get_world_size()} rank, "
+          f"mesh {mesh.mesh_dim_names} {tuple(mesh.mesh.shape)} on {mesh.device_type}")
+    if backend != ("nccl" if on_card else "gloo") or dist.get_world_size() != 1:
+        raise SystemExit(f"parallel: expected a one-rank nccl group, got {backend} x {dist.get_world_size()}")
+    sync(dev)
+    t0 = time.perf_counter()
+    dist.barrier()  # the first collective sets up the communicator: kept out of the timings below
+    sync(dev)
+    print(f"parallel: the first collective (communicator set-up) took {time.perf_counter() - t0:.3f} s; card={card}")
+    saved = os.environ.pop("PCFT_DATA_MESH", None)
+    try:
+        for env in (None, "1"):
+            if env is not None:
+                os.environ["PCFT_DATA_MESH"] = env
+            if production_data_mesh(dev) is not None:
+                raise SystemExit(f"parallel: production_data_mesh() is not None with one card (PCFT_DATA_MESH={env})")
+    finally:
+        os.environ.pop("PCFT_DATA_MESH", None)
+        if saved is not None:
+            os.environ["PCFT_DATA_MESH"] = saved
+
+    # -- measure_sharded against run_measure_device ----------------------------
+    pp = PitchParams()
+    run_measure_device(prep, pp, dev)  # warm: both timings below are of warm calls
+    sync(dev)
+    t0 = time.perf_counter()
+    want = run_measure_device(prep, pp, dev)
+    single_s = time.perf_counter() - t0
+    candidates.launches = viterbi.launches = 0
+    t0 = time.perf_counter()
+    got = measure_sharded(mesh, prep.nat, prep.nat_len, prep.raw_for_device, prep.raw_len_dev, prep.win_nat, prep.win_raw_dev,
+                          prep.mask, prep.rate, pp)
+    sharded_s = time.perf_counter() - t0
+    launches_ab = {"pitch_candidates": candidates.launches, "viterbi": viterbi.launches}
+    if on_card and launches_ab != {"pitch_candidates": 1, "viterbi": 1}:
+        raise SystemExit(f"parallel: measure_sharded launched {launches_ab}, expected A and B once each")
+    unequal = [k for k, (a, b) in enumerate(zip(got, want)) if a.shape != b.shape or not np.array_equal(a, b)]
+    if unequal:
+        raise SystemExit(f"parallel: measure_sharded differs from run_measure_device in outputs {unequal}")
+    S, T = prep.nat.shape
+    print(f"parallel measure_sharded ({S} segments, T {T}): bit-equal to run_measure_device in all six outputs; "
+          f"launches {json.dumps(launches_ab)}; {sharded_s:.3f} s vs run_measure_device {single_s:.3f} s (warm); card={card}")
+
+    # -- the dp x tp LoRA step against the unsharded step ----------------------
+    model, tx, state, ids, mask = trainer
+    cfg = model.cfg
+    adapters = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    snap = {n: p.detach().clone() for n, p in adapters.items()}
+    snap_opt = copy.deepcopy(tx.inner.state_dict())
+
+    def restore():
+        with torch.no_grad():
+            for n, p in adapters.items():
+                p.copy_(snap[n])
+        tx.inner.load_state_dict(copy.deepcopy(snap_opt))
+        tx.inner.zero_grad(set_to_none=True)
+        tx.mini_step = 0
+
+    def first(step, batch):
+        reset_train_counts()
+        loss = float(step(*batch))
+        return loss, train_counts(), {n: p.detach().clone() for n, p in adapters.items()}
+
+    restore()
+    plain = training.make_train_step(model, tx, trainable=state.mask, loss_impl="fused")
+    loss_u, counts_u, after_u = first(plain, (ids, mask))
+    restore()
+    sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ids_l, mask_l = training.shard_train_inputs(mesh, model, tx, ids, mask)
+    sharded = training.make_train_step(model, tx, trainable=state.mask, loss_impl="fused")
+    loss_s, counts_s, after_s = first(sharded, (ids_l, mask_l))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+
+    # ms a step in turns (unsharded, sharded, sharded, unsharded, twice): the
+    # host's speed drifts within a call. On one rank nothing was cut, so the
+    # modules' shards are switched off for the unsharded turns.
+    placed = {m: (m.__dict__.get("shards"), m.__dict__.get("split")) for m in model.modules()}
+    turns = {"P": [], "S": []}
+    for kind in "PSSPPSSP":
+        for m, (sh, sp) in placed.items():
+            m.shards, m.split = (sh, sp) if kind == "S" else (None, None)
+        sync(dev)
+        t0 = time.perf_counter()
+        sharded(ids_l, mask_l) if kind == "S" else plain(ids, mask)
+        sync(dev)
+        turns[kind].append((time.perf_counter() - t0) * 1e3)
+    for m, (sh, sp) in placed.items():
+        m.shards, m.split = sh, sp
+    ms_u, ms_s = float(np.median(turns["P"])), float(np.median(turns["S"]))
+    want_counts = expected_train_counts(cfg.attn_impl, cfg.layers, 1) if on_card else {k: 0 for k in train_counts()}
+    for label, counts in (("unsharded", counts_u), ("sharded", counts_s)):
+        if counts != want_counts:
+            raise SystemExit(f"parallel: the {label} step launched {counts}, expected {want_counts}")
+    worst = max(float(((after_s[n] - after_u[n]).abs() / after_u[n].abs().clamp_min(1e-30)).max()) for n in adapters)
+    loss_rel = abs(loss_s - loss_u) / abs(loss_u)
+    exact = loss_s == loss_u and all(torch.equal(after_s[n], after_u[n]) for n in adapters)
+    if not exact and (loss_rel > 1e-6 or worst > 1e-6):
+        raise SystemExit(f"parallel: the sharded step's loss {loss_s} vs {loss_u}, adapters {worst:.2e} relative")
+    verdict = "bit-equal" if exact else f"NOT bit-equal: loss {loss_rel:.2e}, adapters {worst:.2e} relative (within 1e-6)"
+    print(f"parallel train (dim {cfg.dim}, {cfg.layers} layers, B {ids.shape[0]}, L {ids.shape[1]}, {cfg.attn_impl} + fused_qkv + fused loss, "
+          f"rank {cfg.lora_rank}) on mesh (1, 1): "
+          f"first loss {loss_s:.6f} and {len(adapters)} updated adapter leaves {verdict} to the unsharded step's; launches a step "
+          f"{json.dumps(counts_s)}; sharded {ms_s:.1f} ms a step vs unsharded {ms_u:.1f} ms (medians of 4 steps each in turns; sharded "
+          f"{[round(t, 1) for t in turns['S']]}, unsharded {[round(t, 1) for t in turns['P']]}); "
+          f"peak device memory of the sharded steps {peak_gb:.2f} GB; card={card}")
+    dist.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    print(f"parallel phase: {seconds:.1f} s; card={card}")
+    return dict(
+        seconds=seconds, measure_s=sharded_s, run_measure_device_s=single_s, step_ms=ms_s, unsharded_step_ms=ms_u, peak_gb=peak_gb,
+        bit_equal=exact,
+        launches={"pitch_candidates": {"measure_sharded": launches_ab["pitch_candidates"]},
+                  "viterbi": {"measure_sharded": launches_ab["viterbi"]},
+                  "vmem_attn_fwd": {"sharded_step": counts_s["vmem_attn_fwd"]}, "vmem_attn_bwd": {"sharded_step": counts_s["vmem_attn_bwd"]},
+                  "fused_ce_fwd": {"sharded_step": counts_s["fused_ce_fwd"]}, "fused_ce_bwd": {"sharded_step": counts_s["fused_ce_bwd"]}},
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -4573,7 +4784,7 @@ def main() -> int:
     from prosody_control_french_tts_tpu_torch.core.pipeline import CSV_NAMES, measure_and_build_ssml
     from prosody_control_french_tts_tpu_torch.ops import candidates, kernels, pitch, viterbi
     from prosody_control_french_tts_tpu_torch.prosody.adjust import ProsodySettings
-    from prosody_control_french_tts_tpu_torch.prosody.measure import bucket_length
+    from prosody_control_french_tts_tpu_torch.prosody.measure import bucket_length, prepare_voice
     from prosody_control_french_tts_tpu_torch.utils.synth import synth_voice
 
     card = card_line()
@@ -4663,6 +4874,9 @@ def main() -> int:
             raise SystemExit(f"small voice: card vs CPU differ by {small_err} points")
         print(f"reference: 200 Hz tone -> {tone_med:.3f} Hz; small voice card vs CPU max |diff| {small_err:.2e} points")
 
+        # the measure voice on the host, for phase 24's measure_sharded
+        prep24 = prepare_voice(seg_files, tg_dir, raw_dir, settings)
+
         # -- 4. the eight-step voice pipeline --------------------------------
         pipe_counts = pipeline_phase(tmp, args.seed, card)
 
@@ -4738,7 +4952,12 @@ def main() -> int:
     rows_out.extend(cde_rows)
     rows_out.append(mv["mask_ema"])
     rows_out.append(llm_phases(args, card))
-    rows_out.extend(train_phases(args, card))
+    train_rows, par = train_phases(args, card, prep24)
+    del prep24
+    rows_out.extend(train_rows)
+    for row in rows_out:
+        if row["name"] in ("pitch_candidates", "viterbi"):
+            row["parallel_launches"] = par["launches"][row["name"]]
 
     # -- 16-19. the acoustic aligners and the pipeline with them -------------
     whisper_align_phase(card)

@@ -463,12 +463,16 @@ int launch_typed(const void* q, const void* kc, const void* vc, void* out, int B
                  int group, int pos, float scale, int C, cudaStream_t stream) {
   const LaunchPlan p = launch_plan<T, HD>(S, C);
   if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool sized = false;
-  if (!sized) {
+  // the attribute is the current card's: set once on each card (bit d of `sized`)
+  static unsigned long long sized = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(sized & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(decode_attn_cluster_kernel<T, HD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
-    sized = true;
+    sized |= bit;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, kv_heads, B);

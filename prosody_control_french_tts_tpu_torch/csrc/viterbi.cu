@@ -332,12 +332,16 @@ viterbi_kernel(const float* __restrict__ delta, const float* __restrict__ lf,
 template <int KMAX>
 int launch_kmax(const void* delta, const void* lf, const void* voiced, const void* freq, void* back,
                 void* f0, int S, int F, int K, float vuv_cost, float jump_cost, cudaStream_t stream) {
-  static bool sized = false;
-  if (!sized) {
+  // the attribute is the current card's: set once on each card (bit d of `sized`)
+  static unsigned long long sized = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(sized & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(viterbi_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                Plan<KMAX>::BYTES);
     if (e != cudaSuccess) return (int)e;
-    sized = true;
+    sized |= bit;
   }
   viterbi_kernel<KMAX><<<S, kThreads, Plan<KMAX>::BYTES, stream>>>(
       (const float*)delta, (const float*)lf, (const uint8_t*)voiced, (const float*)freq, (uint8_t*)back,

@@ -184,7 +184,12 @@ def _fused_lora_matmul(x, parts, alpha: float):
     return y
 
 
+_NO_SHARDED_SERVING = "a tensor-parallel model has no serving path (KV caches, the fused serving tree)"
+
+
 class Attention(nn.Module):
+    shards = None  # set by parallel.sharding.shard_params
+
     def __init__(self, cfg: LLMConfig, device=None, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -200,15 +205,21 @@ class Attention(nn.Module):
         c = self.cfg
         hd = c.head_dim
         B, L = x.shape[0], x.shape[1]
+        heads, kv_heads = c.heads, c.kv_heads
+        if self.shards is not None:
+            # the rank's heads: a contiguous block of q heads and of KV heads,
+            # so each q head's KV group (h // (heads / kv_heads)) is local
+            heads, kv_heads = heads // self.shards.model_size, kv_heads // self.shards.model_size
+            x = self.shards.copy_to_model(x)
         if c.fused_qkv:
-            nq, nkv = c.heads * hd, c.kv_heads * hd
+            nq, nkv = heads * hd, kv_heads * hd
             qkv = _fused_lora_matmul(x, [self.q.surface(), self.k.surface(), self.v.surface()], c.lora_alpha)
             q, k, v = qkv[..., :nq], qkv[..., nq : nq + nkv], qkv[..., nq + nkv :]
         else:
             q, k, v = self.q(x), self.k(x), self.v(x)
-        q = q.reshape(B, L, c.heads, hd)
-        k = k.reshape(B, L, c.kv_heads, hd)
-        v = v.reshape(B, L, c.kv_heads, hd)
+        q = q.reshape(B, L, heads, hd)
+        k = k.reshape(B, L, kv_heads, hd)
+        v = v.reshape(B, L, kv_heads, hd)
         q = rope(q, positions, c.rope_theta)
         k = rope(k, positions, c.rope_theta)
         new_cache = None
@@ -222,17 +233,19 @@ class Attention(nn.Module):
             # pure-causal training shape, L a multiple of 128 (DecoderLM.forward
             # decides): ops.flash_attention_gqa reads q and the GQA K/V in
             # this layout, no [B, H, L, L] tensor forward or backward
-            out = flash_attention.flash_attention_gqa(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, c.heads * hd)
+            out = flash_attention.flash_attention_gqa(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, heads * hd)
         elif mask is None:
             # pure-causal training shape, short L (DecoderLM.forward decides):
             # ops.vmem_attn, no [B, H, L, L] tensor forward or backward
-            out = vmem_attn.causal_attention_vmem(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, c.heads * hd)
+            out = vmem_attn.causal_attention_vmem(q, k, v, float(1.0 / math.sqrt(hd))).reshape(B, L, heads * hd)
         else:
-            out = _masked_attention(q, k, v, mask, c.kv_heads)
+            out = _masked_attention(q, k, v, mask, kv_heads)
         return self.o(out), new_cache
 
 
 class MLP(nn.Module):
+    shards = None  # set by parallel.sharding.shard_params
+
     def __init__(self, cfg: LLMConfig, device=None, generator=None):
         super().__init__()
         kw = dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha, dtype=cfg.dtype, quant=cfg.quant, device=device, generator=generator)
@@ -243,9 +256,13 @@ class MLP(nn.Module):
 
     def forward(self, x):
         c = self.cfg
+        ffn = c.ffn
+        if self.shards is not None:
+            ffn //= self.shards.model_size
+            x = self.shards.copy_to_model(x)
         if c.fused_qkv:
             gu = _fused_lora_matmul(x, [self.gate.surface(), self.up.surface()], c.lora_alpha)
-            gate, up = gu[..., : c.ffn], gu[..., c.ffn :]
+            gate, up = gu[..., :ffn], gu[..., ffn:]
         else:
             gate, up = self.gate(x), self.up(x)
         return self.down(nn.functional.silu(gate) * up)
@@ -317,7 +334,16 @@ class DecoderLM(nn.Module):
     ``on_built(module)`` is called on each top-level part (the embedding, each
     decoder layer, the final norm, the head) as soon as it is made:
     ``models.training.init_train`` freezes and downcasts the base there, so a
-    7B float32 tree never exists whole."""
+    7B float32 tree never exists whole.
+
+    ``parallel.sharding.shard_params`` turns a built model into this rank's
+    tensor-parallel shard (``shards`` is then set): heads, MLP columns and
+    rows, the embedding's D and the head's vocabulary are split over the
+    mesh's "model" dim, and the forward calls the collectives itself. A
+    sharded model trains (``models.training``) and is refused by every KV-cache
+    call and by the serving layout."""
+
+    shards = None  # set by parallel.sharding.shard_params
 
     def __init__(self, cfg: LLMConfig, device="cuda", seed: int = 0, on_built=None):
         super().__init__()
@@ -340,13 +366,18 @@ class DecoderLM(nn.Module):
         ``attn_mask`` [B, L] over keys where given). Decoding: pass
         ``kv_caches`` [(k, v) × layers] (updated in place) and ``cache_pos``
         → (logits, caches). ``return_hidden`` gives the post-``ln_f`` state
-        instead of logits."""
+        instead of logits. On a sharded model the logits are the rank's block
+        of the vocabulary, [B, L, V / model]."""
         c = self.cfg
         B, L = ids.shape
         dev = ids.device
+        if self.shards is not None and kv_caches is not None:
+            raise ValueError(_NO_SHARDED_SERVING)
         if positions is None:
             positions = torch.arange(L, device=dev).expand(B, L)
         x = self.embed.embedding[ids].to(c.dtype)
+        if self.shards is not None:
+            x = self.shards.gather_from_model(x)  # RMSNorm needs all of D
         if kv_caches is None:
             # the flash kernels' tiles are 128-wide: short shapes take the dot
             # path; "vmem" keeps whole score rows on chip, bounded to MAX_L, and
@@ -380,6 +411,8 @@ class DecoderLM(nn.Module):
             # fused-CE training path: the caller feeds the final hidden state
             # and the raw lm_head kernel to ops.fused_ce
             return x
+        if self.shards is not None:
+            x = self.shards.copy_to_model(x)  # the vocabulary-parallel head's input
         logits = x.float() @ self.lm_head.kernel.float()
         return (logits, new_caches) if kv_caches is not None else logits
 
@@ -390,19 +423,47 @@ def init_kv_caches(cfg: LLMConfig, batch: int, max_len: int, device="cuda"):
     return [(torch.zeros(shape, dtype=cfg.dtype, device=dev), torch.zeros(shape, dtype=cfg.dtype, device=dev)) for _ in range(cfg.layers)]
 
 
-def causal_lm_loss(logits, ids, loss_mask):
+def _masked_mean(total, count, shards):
+    """``total / max(count, 1)``; on a sharded model both are summed over the
+    batch dims first, so every rank gets the global masked mean (a mean of
+    the ranks' means would weigh their rows unequally)."""
+    if shards is not None:
+        total, count = shards.sum_over_batch(total), shards.sum_over_batch(count)
+    return total / count.clamp_min(1.0)
+
+
+def _vocab_parallel_ll(lg, tgt, shards):
+    """gather − logsumexp over logits split on the vocabulary over "model":
+    the max and the sum of exponentials are reduced over "model", and the
+    rank that owns a target contributes its logit."""
+    vl = lg.shape[-1]
+    mx = shards.max_over_model(lg.max(dim=-1).values)
+    lse = mx + torch.log(shards.reduce_from_model(torch.exp(lg - mx[..., None]).sum(dim=-1)))
+    local = tgt - shards.model_rank * vl
+    owned = (local >= 0) & (local < vl)
+    picked = torch.gather(lg, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    picked = shards.reduce_from_model(torch.where(owned, picked, torch.zeros_like(picked)))
+    return picked - lse
+
+
+def causal_lm_loss(logits, ids, loss_mask, shards=None):
     """Next-token CE with instruction masking (labels = ids shifted; only
     positions where loss_mask=1 count — the prompt is masked out). Written
-    as gather − logsumexp, so no second [B, L, V] tensor is made."""
+    as gather − logsumexp, so no second [B, L, V] tensor is made. With the
+    ``shards`` of a sharded model, ``logits`` are the rank's vocabulary block
+    and its rows the rank's batch rows; the result is the global loss."""
     lg = logits[:, :-1]
     tgt = ids[:, 1:].long()
-    picked = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    ll = picked - torch.logsumexp(lg, dim=-1)
+    if shards is None:
+        picked = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        ll = picked - torch.logsumexp(lg, dim=-1)
+    else:
+        ll = _vocab_parallel_ll(lg, tgt, shards)
     m = loss_mask[:, 1:].to(ll.dtype)
-    return -(ll * m).sum() / m.sum().clamp_min(1.0)
+    return _masked_mean(-(ll * m).sum(), m.sum(), shards)
 
 
-def causal_lm_loss_fused(hidden, head_w, ids, loss_mask):
+def causal_lm_loss_fused(hidden, head_w, ids, loss_mask, shards=None):
     """:func:`causal_lm_loss` computed by the fused linear cross-entropy
     (``ops.fused_ce``): same gather − logsumexp formula, but the [B, L, V]
     logits never exist in device memory. The head product runs in
@@ -410,13 +471,15 @@ def causal_lm_loss_fused(hidden, head_w, ids, loss_mask):
     float32 logits, so in bfloat16 the two agree only to about 1e-3
     relative. ``hidden`` is the post-``ln_f`` state from
     ``model(ids, return_hidden=True)``; ``head_w`` the raw ``lm_head`` kernel
-    [D, V], frozen (no dW is computed)."""
+    [D, V], frozen (no dW is computed); on a sharded model the whole head
+    (``models.training`` gathers it), the rank's batch rows, and ``shards``
+    for the global mean."""
     B, L, D = hidden.shape
     h = hidden[:, :-1].reshape(B * (L - 1), D)
     tgt = ids[:, 1:].reshape(-1)
     m = loss_mask[:, 1:].reshape(-1).to(torch.float32)
     nll = fused_ce.linear_ce_rows(h, head_w.to(hidden.dtype), tgt)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return _masked_mean((nll * m).sum(), m.sum(), shards)
 
 
 def require_on(t: torch.Tensor, dev: torch.device, what: str) -> None:
@@ -458,6 +521,8 @@ def greedy_generate(model: DecoderLM, prompt_ids, max_new: int, eos_id: int | No
     where the model must already be."""
     dev = resolve_device(device)
     require_on(model.embed.embedding, dev, "the model")
+    if model.shards is not None:
+        raise ValueError(_NO_SHARDED_SERVING)
     dsp_precision()
     prompt = torch.as_tensor(prompt_ids).to(dev, torch.int32)
     B, P = prompt.shape
@@ -485,7 +550,10 @@ def greedy_generate(model: DecoderLM, prompt_ids, max_new: int, eos_id: int | No
 def fuse_decode_params(params, cfg: LLMConfig, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Training tree (a :class:`DecoderLM` or its ``state_dict``) → fused
     serving tree in ``dtype`` with LoRA folded in, on the tree's device.
-    Quantized trees (``kernel_q`` storage) are refused."""
+    Quantized trees (``kernel_q`` storage) and tensor-parallel models are
+    refused."""
+    if isinstance(params, nn.Module) and params.shards is not None:
+        raise ValueError(_NO_SHARDED_SERVING)
     p = params.state_dict() if isinstance(params, nn.Module) else params
 
     def folded(stem):

@@ -39,7 +39,17 @@ class LoRALinear(nn.Module):
     the NF4 serving layout) or ``"nf4"`` (4-bit packed). Quantized kernels
     are buffers ``kernel_q`` + ``kernel_scale`` and are dequantized to
     ``dtype`` in :meth:`forward`; ``int8b`` runs
-    ``quant.matmul_int8_block`` and never materialises the kernel."""
+    ``quant.matmul_int8_block`` and never materialises the kernel.
+
+    On a tensor-parallel model (``parallel.sharding.shard_params``) the base
+    kernel holds this rank's block and ``split`` says which: ``"col"`` (output
+    columns: the replicated bias and ``lora_b`` are read at the rank's
+    columns) or ``"row"`` (input rows: ``lora_a`` is read at the rank's rows,
+    and the partial products of the base and of ``x·lora_a`` are summed over
+    "model" in one all-reduce before ``lora_b``)."""
+
+    shards = None  # the model's parallel.sharding.ModelShards, when sharded
+    split = None  # "col" | "row" on a sharded model
 
     def __init__(
         self,
@@ -92,7 +102,17 @@ class LoRALinear(nn.Module):
             kernel = dequant_nf4(self.kernel_q, self.kernel_scale, dt)
         else:
             kernel = self.kernel.to(dt)  # no copy when already stored in dt
-        return kernel, self.bias, self.lora_a, self.lora_b
+        return (kernel, *self._adapters())
+
+    def _adapters(self):
+        """(bias, lora_a, lora_b) as this rank reads them: a column-parallel
+        projection reads the bias and ``lora_b`` at its columns."""
+        bias, lora_b = self.bias, self.lora_b
+        if self.split == "col":
+            cols = self.shards.block(self.features)
+            bias = None if bias is None else bias[cols]
+            lora_b = None if lora_b is None else lora_b[:, cols]
+        return bias, self.lora_a, lora_b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -104,11 +124,25 @@ class LoRALinear(nn.Module):
             y = x @ dequant_nf4(self.kernel_q, self.kernel_scale, dt)
         else:
             y = x @ self.kernel.to(dt)
-        if self.bias is not None:
-            y = y + self.bias.to(dt)
-        if self.lora_a is not None:
-            y = y + (self.alpha / self.rank) * ((x @ self.lora_a.to(dt)) @ self.lora_b.to(dt))
+        if self.split == "row":
+            return self._reduce_rows(x, y)
+        bias, lora_a, lora_b = self._adapters()
+        if bias is not None:
+            y = y + bias.to(dt)
+        if lora_a is not None:
+            y = y + (self.alpha / self.rank) * ((x @ lora_a.to(dt)) @ lora_b.to(dt))
         return y
+
+    def _reduce_rows(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Row-parallel tail: the partial products summed over "model" (one
+        all-reduce of [y | x·lora_a]), then the adapter's second product."""
+        dt = self.dtype
+        if self.lora_a is None:
+            return self.shards.reduce_from_model(y)
+        a = self.lora_a[self.shards.block(self.in_features)]
+        yt = self.shards.reduce_from_model(torch.cat([y, x @ a.to(dt)], dim=-1))
+        y, t = yt[..., : y.shape[-1]], yt[..., y.shape[-1] :]
+        return y + (self.alpha / self.rank) * (t @ self.lora_b.to(dt))
 
 
 def lora_param_mask(params: dict) -> dict:

@@ -15,8 +15,13 @@ On the card the step's attention (``cfg.attn_impl="vmem"`` up to L 512,
 fused) are the hand-written CUDA kernels of ``ops.vmem_attn`` or
 ``ops.flash_attention`` and of ``ops.fused_ce``, forward and backward.
 
-Not here: ``shard_train_inputs`` of the JAX package (it waits for the port of
-``parallel/*``).
+Data and tensor parallelism: :func:`shard_train_inputs` keeps this rank's
+shard of the model (``parallel.sharding``: megatron-style over the mesh's
+"model" dim) and its rows of the batch (over "data", or "dcn" and "data");
+:func:`make_train_step` on such a model computes the global masked mean,
+makes every trainable gradient whole before the update (summed over "model"
+where a rank saw only its share, then over the batch dims) and so leaves the
+replicated leaves bit-identical on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from ..ops.fused_ce import linear_ce_supported
 from ..ops.kernels import dsp_precision, resolve_device
+from ..parallel.sharding import llm_param_spec, shard_params
 from .llm import DecoderLM, LLMConfig, causal_lm_loss, causal_lm_loss_fused
 from .lora import lora_param_mask
 
@@ -55,6 +61,10 @@ class AccumAdamW:
         self.accum = accum
         self.mini_step = 0
         self.inner = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+
+    def applies_next(self) -> bool:
+        """Whether the next :meth:`step` updates the parameters."""
+        return self.mini_step + 1 >= self.accum
 
     def step(self) -> None:
         self.mini_step += 1
@@ -166,12 +176,14 @@ def make_train_step(
     use_fused = loss_impl == "fused" or (
         loss_impl == "auto" and linear_ce_supported(model.cfg.dim, model.cfg.vocab_size) and head_frozen
     )
-    chosen = {id(p) for _, p in _trainable_parameters(model, trainable)}
+    named = _trainable_parameters(model, trainable)
+    chosen = {id(p) for _, p in named}
     for p in model.parameters():
         p.requires_grad_(id(p) in chosen)
     if chosen != {id(p) for p in tx.params}:
         raise ValueError("make_train_step: the optimizer was not made over the trainable leaves")
     dev = model.embed.embedding.device
+    shards = model.shards
 
     def step_fn(ids, loss_mask):
         dsp_precision()
@@ -179,10 +191,19 @@ def make_train_step(
         loss_mask = torch.as_tensor(loss_mask).to(dev, torch.float32)
         if use_fused:
             hidden = model(ids, return_hidden=True)
-            loss = causal_lm_loss_fused(hidden, model.lm_head.kernel, ids, loss_mask)
+            head = model.lm_head.kernel
+            if shards is not None:
+                # kernel H's backward needs the whole vocabulary's lse, so it
+                # reads the whole (frozen) head: gathered over "model"
+                with torch.no_grad():
+                    head = shards.gather_from_model(head)
+            loss = causal_lm_loss_fused(hidden, head, ids, loss_mask, shards)
         else:
-            loss = causal_lm_loss(model(ids), ids, loss_mask)
+            loss = causal_lm_loss(model(ids), ids, loss_mask, shards)
         loss.backward()
+        if shards is not None and tx.applies_next():
+            # once per update: the accumulated local gradients made whole
+            shards.reduce_grads(named)
         tx.step()
         return loss.detach()
 
@@ -198,3 +219,33 @@ def make_train_step(
 
     multi_fn.loss_impl = step_fn.loss_impl
     return multi_fn
+
+
+def shard_train_inputs(mesh, model: DecoderLM, tx: AccumAdamW, ids, loss_mask):
+    """Place the training state on ``mesh`` (a ``DeviceMesh`` with dims
+    ("data", "model") or ("dcn", "data", "model")): the model keeps this
+    rank's shard of every leaf per ``parallel.sharding.llm_param_spec``, in
+    place (a model sharded on this mesh already is left as it is); the
+    optimizer's moments stay replicated with their LoRA leaves (the moments
+    of a trainable leaf that the policy shards are cut the same way). Every
+    rank passes the same global ``ids`` [B, L] and ``loss_mask``; returns this
+    rank's rows of them over the batch dims, B split evenly."""
+    if model.shards is None:
+        specs = llm_param_spec(model)
+        shards = shard_params(model, mesh)
+        for name, p in model.named_parameters():
+            pl = specs[name][-1]
+            for st in tx.inner.state.get(p, {}).values():
+                if pl.is_shard() and torch.is_tensor(st) and st.dim() == p.dim() and st.shape != p.shape:
+                    blk = shards.block(st.shape[pl.dim])
+                    st.data = st.data.narrow(pl.dim, blk.start, blk.stop - blk.start).clone()
+    elif model.shards.mesh is not mesh:
+        raise ValueError("shard_train_inputs: the model is sharded on another mesh")
+    shards = model.shards
+    ids, loss_mask = torch.as_tensor(ids), torch.as_tensor(loss_mask)
+    B = ids.shape[0]
+    if B % shards.batch_size:
+        raise ValueError(f"batch {B} does not split evenly over {shards.batch_size} batch ranks")
+    per = B // shards.batch_size
+    rows = slice(shards.batch_rank * per, (shards.batch_rank + 1) * per)
+    return ids[rows], loss_mask[rows]

@@ -19,6 +19,7 @@ or launch raises, there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -225,7 +226,19 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s card, which must be the current card:
+    a launch goes to the current card, and a stream of another is refused
+    (or, the null stream, runs the kernel on the wrong card)."""
+    cur = torch.cuda.current_device()
+    if t.device.index is not None and t.device.index != cur:
+        raise RuntimeError(f"a kernel's input is on {t.device} while cuda:{cur} is current: launch it under on_device({t.device})")
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(dev: torch.device):
+    """A scope in which ``dev`` is the current card (kernels launch on the
+    current card's streams); nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, device: torch.device) -> None:

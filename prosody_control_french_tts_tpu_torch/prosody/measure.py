@@ -32,10 +32,11 @@ import torch
 
 from ..core.profiling import phase
 from ..ops import pcm
-from ..ops.kernels import dsp_precision, resolve_device
+from ..ops.kernels import dsp_precision, on_device, resolve_device
 from ..ops.loudness import k_weight, max_blocks_for, windowed_loudness
 from ..ops.pitch import PitchParams, PitchTrack, _geometry, _pitch_frames, median_pitch_in_windows, viterbi_batched
 from ..ops.rangemax import RangeMax
+from ..parallel.mesh import production_data_mesh
 from ..ssml.syntagme import Syntagme, extract_words_and_pauses, pipeline_syntagmes
 from ..utils import fr_pos
 from ..utils.textgridio import read_textgrid
@@ -315,34 +316,67 @@ def prepare_voice(
 run_measure_device_calls = 0  # calls of the per-voice device pass
 
 
+def _slots(dev: torch.device) -> list:
+    """The devices a measure pass splits its segment rows over: the
+    production data mesh (``parallel.mesh.production_data_mesh``), else
+    ``dev`` alone."""
+    return production_data_mesh(dev) or [dev]
+
+
+def _measure_on_slots(g: dict, rate: float, pp: PitchParams, slots) -> list:
+    """A group's seven tensors (``g``) measured over the slots: the segment
+    axis padded with zero rows to a multiple of the slots, each slot's
+    contiguous block of rows measured on its device with that device
+    current, the work of every slot enqueued before any read. One slot
+    measures ``g`` as it lies. Returns the slots' packed outputs
+    (:func:`_pack6`); the caller reads the first S rows only."""
+    S = g["nat"].shape[0]
+    per = -(-S // len(slots))
+
+    def block(t, i, sdev):
+        part = t[i * per : (i + 1) * per]
+        if part.shape[0] < per:
+            part = torch.cat([part, part.new_zeros((per - part.shape[0],) + tuple(part.shape[1:]))])
+        return part.to(sdev)
+
+    parts = []
+    for i, sdev in enumerate(slots):
+        with on_device(sdev):
+            b = {k: block(g[k], i, sdev) for k in ("nat", "nat_len", "win_nat", "mask", "raw", "raw_len", "win_raw")}
+            with phase("measure/device/nat"):
+                nat_out = measure_nat(b["nat"], b["nat_len"], b["win_nat"], b["mask"], rate, g["T"], pp)
+            with phase("measure/device/raw"):
+                raw_out = measure_raw(b["raw"], b["raw_len"], b["win_raw"], rate, g["T2"])
+            parts.append(_pack6((*nat_out, *raw_out)))
+    return parts
+
+
+def _read_rows(parts: list, S: int) -> np.ndarray:
+    """The first S rows of the slots' packed outputs, on the host."""
+    return np.concatenate([p.cpu().numpy() for p in parts])[:S]
+
+
+def _pack_dev(slots) -> torch.device:
+    """Where a group is packed: on the one slot's device, else on the host
+    (each slot takes its block from there)."""
+    return slots[0] if len(slots) == 1 else torch.device("cpu")
+
+
 def run_measure_device(prep: PreparedVoice, pp: PitchParams, device="cuda"):
     """The two device passes (natural side, then raw side), eager on one
     stream. Returns the six host arrays (p_syn, p_seg, l_nat_syn,
-    l_nat_seg, l_raw_syn, l_raw_seg)."""
+    l_nat_seg, l_raw_syn, l_raw_seg). Under the production data mesh
+    (``parallel.mesh.production_data_mesh``) the segment rows are split over
+    its devices."""
     global run_measure_device_calls
     run_measure_device_calls += 1
-    dev = resolve_device(device)
     dsp_precision()
-
-    def put(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device=dev, dtype=dtype, non_blocking=False)
-
-    rate = float(prep.rate)
+    slots = _slots(resolve_device(device))
     with phase("measure/device/to_device"):
-        nat = put(prep.nat)
-        nat_len = put(prep.nat_len, torch.int64)
-        win_nat = put(prep.win_nat, torch.int64)
-        mask = put(prep.mask)
-        raw = put(prep.raw_for_device)
-        raw_len = put(prep.raw_len_dev, torch.int64)
-        win_raw = put(prep.win_raw_dev, torch.int64)
-    with phase("measure/device/nat"):
-        nat_out = measure_nat(nat, nat_len, win_nat, mask, rate, int(prep.nat.shape[1]), pp)
-    with phase("measure/device/raw"):
-        raw_out = measure_raw(raw, raw_len, win_raw, rate, int(prep.raw_for_device.shape[1]))
+        g = _pack_group([(None, prep)], _pack_dev(slots))
+    parts = _measure_on_slots(g, float(prep.rate), pp, slots)
     with phase("measure/device/wait"):
-        return tuple(o.cpu().numpy() for o in (*nat_out, *raw_out))
+        return _unpack6(_read_rows(parts, prep.nat.shape[0]))
 
 
 def postprocess_voice(prep: PreparedVoice, outputs, settings: ProsodySettings) -> MeasureResult:
@@ -526,7 +560,9 @@ def measure_voices_batched(
     Groups are keyed by the padded T because the pitch frame grid is centred
     over the padded buffer, and by the rate because one rate serves a whole
     pass. This is the counterpart of the reference's process pool (one
-    pipeline per voice and per OS process)."""
+    pipeline per voice and per OS process). Under the production data mesh
+    (``parallel.mesh.production_data_mesh``) each group's rows are split
+    over its devices, A and B launching once per group and device."""
     dev = resolve_device(device)
     dsp_precision()
     pp = pitch_params or PitchParams()
@@ -534,20 +570,17 @@ def measure_voices_batched(
     for name, prep in preps.items():
         groups.setdefault((prep.nat.shape[1], int(prep.rate)), []).append((name, prep))
 
+    slots = _slots(dev)
     pending = []
     for (_, rate), items in groups.items():
         with phase("measure/device/to_device"):
-            g = _pack_group(items, dev)
-        with phase("measure/device/nat"):
-            nat_out = measure_nat(g["nat"], g["nat_len"], g["win_nat"], g["mask"], float(rate), g["T"], pp)
-        with phase("measure/device/raw"):
-            raw_out = measure_raw(g["raw"], g["raw_len"], g["win_raw"], float(rate), g["T2"])
-        pending.append((items, _pack6((*nat_out, *raw_out))))
+            g = _pack_group(items, _pack_dev(slots))
+        pending.append((items, _measure_on_slots(g, float(rate), pp, slots), g["nat"].shape[0]))
 
     results: dict[str, MeasureResult] = {}
-    for items, packed in pending:
+    for items, parts, rows in pending:
         with phase("measure/device/wait"):
-            out = _unpack6(packed.cpu().numpy())
+            out = _unpack6(_read_rows(parts, rows))
         offset = 0
         for name, prep in items:
             S, Nv = prep.nat.shape[0], prep.win_nat.shape[1]

@@ -37,7 +37,8 @@ def test_importing_every_module_loads_no_jax():
                  "eval.real_audio_agreement", "align.needleman_wunsch", "align.levenshtein_merge", "ops.ctc_loss",
                  "align.train_ctc", "align.pretrain_ctc", "align.pretrain_whisper", "audio.corpus", "audio.convert",
                  "models.schedules", "core.checkpoint", "models.port_weights", "legacy.bdd", "legacy.needleman",
-                 "legacy.voc", "viz.plotdata", "viz.acoustic", "viz.server", "__main__"):
+                 "legacy.voc", "viz.plotdata", "viz.acoustic", "viz.server", "__main__", "parallel.mesh",
+                 "parallel.sharding", "parallel.distributed", "parallel.measure_sharded"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

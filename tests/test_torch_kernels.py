@@ -269,6 +269,49 @@ def test_viterbi_kernel_keeps_the_first_argmax_on_ties(cuda, shape):
         torch.testing.assert_close(viterbi.viterbi_path(*args, 0.14, 0.35), want, rtol=0, atol=0)
 
 
+@pytest.mark.gpu
+def test_measure_passes_take_zero_length_rows(cuda):
+    """The rows that ``parallel.measure_sharded`` and the production data
+    mesh pad with (zero signal, length 0, windows masked out) through A and
+    B on the card: no fault, all-unvoiced F0 0 and LUFS -70 as on the CPU,
+    and the real rows of the same batch within 1e-3 relative (F0) and
+    0.01 dB (LUFS) of the CPU's."""
+    from prosody_control_french_tts_tpu_torch.ops.pitch import PitchParams
+    from prosody_control_french_tts_tpu_torch.prosody.measure import measure_nat, measure_raw
+
+    rng = np.random.default_rng(0)
+    sr, T, N = 22050, 1 << 15, 4
+    t = np.arange(T) / sr
+    nat = np.zeros((4, T), np.float32)
+    lens = np.array([T, T - 2000, T - 4000, 0], np.int32)
+    win = np.zeros((4, N, 2), np.int32)
+    mask = np.zeros((4, N), bool)
+    for i, f in enumerate((180.0, 220.0, 260.0)):
+        nat[i, : lens[i]] = (0.4 * np.sin(2 * np.pi * f * t) * (rng.random(T) < 0.97))[: lens[i]]
+        step = int(lens[i]) // N
+        for j in range(N):
+            win[i, j] = (j * step, (j + 1) * step)
+            mask[i, j] = True
+
+    def run(dev):
+        x, n, w, m = (torch.from_numpy(a).to(dev) for a in (nat, lens.astype(np.int64), win.astype(np.int64), mask))
+        outs = (*measure_nat(x, n, w, m, float(sr), T, PitchParams()), *measure_raw(x, n, w, float(sr), T))
+        return [o.cpu().numpy() for o in outs]
+
+    candidates.launches = viterbi.launches = 0
+    got = run(cuda)
+    assert (candidates.launches, viterbi.launches) == (1, 1)
+    want = run(torch.device("cpu"))
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert np.isfinite(g).all(), k
+        np.testing.assert_array_equal(g[3], 0.0 if k < 2 else -70.0)
+        sel = mask[:3] if g.ndim == 2 else slice(0, 3)
+        if k < 2:
+            np.testing.assert_allclose(g[:3][sel], w[:3][sel], rtol=1e-3, atol=0)
+        else:
+            np.testing.assert_allclose(g[:3][sel], w[:3][sel], rtol=0, atol=0.01)
+
+
 def decode_attn_inputs(B, H, KV, hd, S, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(device, dtype)
