@@ -7,15 +7,18 @@ kernel G and at L 1024 / 768 with the flash attention), the acoustic
 aligners (Whisper, CTC) alone and in the eight-step pipeline, the break
 predictors' serving path (the BERT tagger behind the SSML HTTP service),
 the contextual POS tagger with the evaluation layer, the training
-halves of the aligners and the separator, and the parallel layer over a
-one-rank process group.
+halves of the aligners and the separator, the parallel layer over a
+one-rank process group, and the native ingest, the corpus prefetch and the
+Azure backend against a loopback server.
 
     python3 chip_smoke.py [--seed 0]
 
 Run from the root of a checkout, on a machine with an NVIDIA H100. It
 
 1. builds the port's CUDA kernels from ``prosody_control_french_tts_tpu_torch/csrc``
-   (``nvcc``, one process per source, into ``build/torch_kernels/``);
+   (``nvcc``, one process per source, into ``build/torch_kernels/``) and its
+   native audio ingest from ``prosody_control_french_tts_tpu_torch/native``
+   (``g++``, into ``build/torch_native/``);
 2. synthesises a full-width voice from the seed (10 segments of 8–23 s at
    44.1 kHz, word TextGrids, a raw rendering of each segment) and runs
    ``measure_and_build_ssml(..., device="cuda")`` with kernel A's and B's
@@ -267,12 +270,33 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     H 1 + 1 launches a step, ms a step of both and the peak memory; the
     group destroyed. Alone (it builds its own 7B trainer):
     ``tools/parallel_phase.py``.
+25. (run right after phase 4) the native audio ingest, the corpus prefetch
+    and the Azure backend: the ingest's build seconds (``g++``, step 1);
+    ``_load_padded`` through the ingest against the port's Python path on
+    phase 2's voice (bit-equal, both timed); ``tts_backend: azure`` builds
+    the Azure client with no network call; then phase 4's brute recording
+    (159.5 s) through the eight steps with an ``AzureBackend`` whose
+    endpoint is a loopback ``ThreadingHTTPServer`` answering each POST with
+    the RIFF of the fake TTS for the posted SSML, at 44.1 kHz and resampled
+    to 48 kHz (the raw corpus, 44.1 kHz, then resampled by the ingest):
+    cold, then warm with every count at 0 (A and B once each; 2 prefetch
+    hits, no miss; the raw corpus assembled from its resident rows at 44.1
+    kHz, none at 48 kHz; every resident corpus image bit-equal to its host
+    load), then the Measure step alone with an empty cache (CSVs
+    byte-equal); prints ``load_nat``, ``load_raw``, ``to_device`` and the
+    Measure step with and without the prefetch. The 44.1 kHz run's
+    artifacts against a fake-TTS run on the same recording: byte-equal but
+    the stitched wavs (OUT.wav, the segmented audio), which must agree
+    within one PCM16 step (the fake's float chunks are faded before they
+    are quantized, the Azure payload's after). Alone:
+    ``tools/ingest_phase.py``.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fifteen entries (mask_ema, ctc_viterbi and
 ctc_loss, which replace no TPU kernel, among them; A's and B's rows carry
 ``cli_launches``, F's the converted 7B tree's; A's, B's, G's and H's
-``parallel_launches``, phase 24's), and last ``{"ok": true,
+``parallel_launches``, phase 24's; A's and B's ``ingest_launches``, phase
+25's), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -1033,6 +1057,259 @@ def pipeline_phase(tmp: Path, seed: int, card: str, device="cuda") -> dict:
     print("pipeline phases cold: " + json.dumps({k: round(v, 4) for k, v in sorted(cold_phases.items())}))
     print("profile (warm pipeline run): " + json.dumps(trace))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the native ingest, the corpus prefetch and the Azure backend (phase 25)
+# ---------------------------------------------------------------------------
+
+# the wavs that Synthesize+Merge stitches: the fake's float chunks are faded
+# before they are quantized to PCM16, the Azure payload's chunks after, so a
+# faded sample may round one step apart; every other artifact is byte-equal
+STITCHED = re.compile(r"(^|/)(OUT|segmented_audio/segment_ph\d+)\.wav$")
+INGEST_RATES = (44100, 48000)  # the natural recording's rate in phase 25's two runs
+
+
+def riff_payload(samples, rate: int) -> bytes:
+    """A PCM16 mono RIFF as the Azure service returns it."""
+    import io
+    import wave
+
+    import numpy as np
+
+    pcm = np.clip(np.round(np.asarray(samples, np.float64) * 32768), -32768, 32767).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+class AzureStub:
+    """The Azure REST endpoint on a loopback ``ThreadingHTTPServer``: each
+    POST gets the RIFF of the port's fake TTS for the posted SSML; bad
+    headers get a 400. Serves in a daemon thread between ``__enter__`` and
+    ``__exit__``."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from prosody_control_french_tts_tpu_torch.tts.fake import FakeBackend
+
+        fake, stub = FakeBackend(), self
+        self.posts = 0
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"])).decode("utf-8")
+                if self.headers["X-Microsoft-OutputFormat"] != "riff-44100hz-16bit-mono-pcm" or \
+                        self.headers["Content-Type"] != "application/ssml+xml":
+                    self.send_error(400)
+                    return
+                stub.posts += 1
+                audio = fake.synthesize(body)
+                payload = riff_payload(audio.samples, audio.rate)
+                self.send_response(200)
+                self.send_header("Content-Type", "audio/wav")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/cognitiveservices/v1"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def loopback_azure(url: str):
+    """An ``AzureBackend`` whose endpoint is ``url``."""
+    from prosody_control_french_tts_tpu_torch.tts.azure import AzureBackend
+
+    class LoopbackAzure(AzureBackend):
+        @property
+        def _url(self) -> str:
+            return url
+
+    return LoopbackAzure(api_key="loopback", voice="fr-FR-DeniseNeural")
+
+
+def azure_config(base: Path, name: str):
+    from prosody_control_french_tts_tpu_torch.core.config import PipelineConfig
+
+    return PipelineConfig.from_dict({
+        "data_dir": "Data/voice", "out_dir": "Out", "voice_names": [name], "azure_voice_name": "fr-FR-DeniseNeural",
+        "silence": {"min_silence_len": 1000, "silence_thresh": -50, "keep_silence": 300},
+        "tts_backend": "azure", "aligner": "energy",
+    }, base)
+
+
+def prefetch_counts() -> dict:
+    from prosody_control_french_tts_tpu_torch.prosody.measure import PREFETCH
+
+    return {"hits": PREFETCH.hits, "misses": PREFETCH.misses, "assembled": PREFETCH.assembled}
+
+
+def reset_prefetch_counts() -> None:
+    from prosody_control_french_tts_tpu_torch.prosody.measure import PREFETCH
+
+    PREFETCH.hits = PREFETCH.misses = PREFETCH.assembled = 0
+
+
+def load_phases() -> dict:
+    from prosody_control_french_tts_tpu_torch.core import profiling
+
+    return {k.split("/")[-1]: round(profiling.PHASES.get(k, 0.0), 4)
+            for k in ("measure/prepare/load_nat", "measure/prepare/load_raw", "measure/device/to_device", "measure/prepare")}
+
+
+def compare_with_fake(az_base: Path, fake_base: Path) -> dict:
+    """Every file of the Azure run against the fake run's (the brute
+    recording, the segments, transcripts, TextGrids, raw renderings, CSVs,
+    SSML documents, synthesized chunks, JSON, the final TextGrid and the
+    breaks): byte-equal, but for the stitched wavs, which must hold the same
+    samples within one PCM16 step. Returns the counts."""
+    import numpy as np
+
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav
+
+    def files(base):
+        # the run's own records (its configuration names its backend) aside
+        return {p.relative_to(base).as_posix() for p in base.rglob("*")
+                if p.is_file() and p.name not in ("step_timings.jsonl", "used_config.yaml")}
+
+    got, want = files(az_base), files(fake_base)
+    if got != want:
+        raise SystemExit(f"ingest: the Azure run's files differ from the fake run's: {sorted(got ^ want)[:8]}")
+    equal, stitched, off_samples = 0, 0, 0
+    for rel in sorted(got):
+        a, b = (az_base / rel).read_bytes(), (fake_base / rel).read_bytes()
+        if a == b:
+            equal += 1
+            continue
+        if not STITCHED.search(rel):
+            raise SystemExit(f"ingest: {rel} differs between the Azure and the fake run")
+        x, y = (np.round(read_wav(base / rel).samples * 32768).astype(np.int32) for base in (az_base, fake_base))
+        if x.shape != y.shape or np.abs(x - y).max() > 1:
+            raise SystemExit(f"ingest: {rel} differs by more than one PCM16 step from the fake run's")
+        stitched += 1
+        off_samples += int((x != y).sum())
+    return {"files": len(got), "byte_equal": equal, "stitched_within_1_lsb": stitched, "samples_1_lsb_apart": off_samples}
+
+
+def ingest_phase(tmp: Path, seed: int, card: str, seg_files, build_s: float, device="cuda") -> dict:
+    """Phase 25 of the module docstring. Returns A's and B's launches in the
+    two warm Azure runs."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.core import profiling
+    from prosody_control_french_tts_tpu_torch.core.pipeline import AudioPipeline
+    from prosody_control_french_tts_tpu_torch.prosody.measure import PREFETCH, _load_padded, segment_sort_key
+    from prosody_control_french_tts_tpu_torch.tts.azure import AzureBackend
+    from prosody_control_french_tts_tpu_torch.utils.wavio import read_wav, resample, write_wav
+
+    dev = torch.device(device)
+    print(f"ingest: native build {build_s:.2f} s (g++ -O3, utils/native_audio.py); card={card}")
+    # the native load against the Python path on the measure voice (single rate, PCM16)
+    t0 = time.perf_counter()
+    nat = _load_padded(seg_files)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = _load_padded([*seg_files, None])  # a None item takes the Python path
+    python_s = time.perf_counter() - t0
+    S = len(seg_files)
+    if not (nat[0].dtype == py[0].dtype == np.int16 and np.array_equal(nat[0], py[0][:S]) and np.array_equal(nat[1], py[1][:S])
+            and nat[2] == py[2]):
+        raise SystemExit("ingest: the native load differs from the Python path on the single-rate corpus")
+    print(f"ingest: _load_padded native vs Python path on the measure voice ({S} files, int16 {list(nat[0].shape)}): "
+          f"bit-equal; native {native_s:.4f} s, Python {python_s:.4f} s")
+
+    # the default configuration builds the Azure client, with no network call
+    if type(AudioPipeline("cfg_only", azure_config(tmp / "ingest_cfg", "cfg_only"), device=dev).tts) is not AzureBackend:
+        raise SystemExit("ingest: tts_backend: azure did not build the Azure backend")
+
+    out = {"launches": {}}
+    with AzureStub() as stub:
+        for rate in INGEST_RATES:
+            label = f"{rate // 1000}k" if rate % 1000 == 0 else f"{rate / 1000:g}k"
+            name = f"azure_{label}"
+            base = tmp / f"ingest_{label}"
+            texts, audio_s = build_brute_voice(base, name, seed, FULL_SEGMENTS)
+            if rate != 44100:
+                brute = base / "Data" / "voice" / name / "brute" / "segment.wav"
+                write_wav(brute, resample(read_wav(brute), rate))
+            pipe = AudioPipeline(name, azure_config(base, name), tts=loopback_azure(stub.url), device=dev)
+            run_steps(pipe, ["Preprocess"])
+            segs = sorted((pipe.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
+            if len(segs) != FULL_SEGMENTS:
+                raise SystemExit(f"ingest {label}: the silence split gave {len(segs)} segments")
+            pipe.transcription_raw_dir.mkdir(parents=True, exist_ok=True)
+            for seg, text in zip(segs, texts):
+                (pipe.transcription_raw_dir / f"{seg.stem}.txt").write_text(text, encoding="utf-8")
+            reset_prefetch_counts()
+            _, cold_s = run_steps(pipe, pipe.STEP_NAMES[1:])
+            cold_prefetch = prefetch_counts()
+            check_pipeline_artifacts(pipe, FULL_SEGMENTS)
+            if rate == 44100:
+                # the fake TTS on a copy of the same recording
+                build_brute_voice(tmp / "ingest_fake", name, seed, FULL_SEGMENTS)
+                drive_voice(tmp / "ingest_fake", name, texts, dev)
+                cmp = compare_with_fake(base, tmp / "ingest_fake")
+                print(f"ingest {label}: the Azure run's artifacts against the fake run's: {json.dumps(cmp)}")
+            # warm: the eight steps with every count at 0
+            posts = stub.posts
+            reset_kernel_counts()
+            reset_prefetch_counts()
+            profiling.reset_phases()
+            warm, warm_s = run_steps(pipe, None)
+            counts, pre_counts, warm_load = kernel_counts(), prefetch_counts(), load_phases()
+            launches = 1 if dev.type == "cuda" else 0  # a rehearsal on the CPU takes the plain versions
+            if counts["pitch_candidates"] != launches or counts["viterbi"] != launches:
+                raise SystemExit(f"ingest {label}: kernels A and B must launch once per measure call, got {counts}")
+            want_assembled = 1 if rate == 44100 else 0  # 48 kHz: the raw corpus is resampled, a float path
+            if (pre_counts["hits"], pre_counts["misses"], pre_counts["assembled"]) != (2, 0, want_assembled):
+                raise SystemExit(f"ingest {label}: prefetch {pre_counts}, expected 2 hits, 0 misses, {want_assembled} assembled")
+            residents = 0
+            for (batch, _, _, _), res in PREFETCH.corpora.values():
+                if res is not None:
+                    residents += 1
+                    if not np.array_equal(res.ready().cpu().numpy(), batch):
+                        raise SystemExit(f"ingest {label}: a resident corpus image differs from its host load")
+            csvs = [p.read_bytes() for p in (pipe.bdd_ssml_csv, pipe.bdd_syntagme_ssml_csv, pipe.bdd_syntagme_synth_csv)]
+            # the measure step alone with an empty cache
+            PREFETCH.clear()
+            profiling.reset_phases()
+            empty, _ = run_steps(pipe, ["Measure & Build SSML"])
+            empty_counts, empty_load = prefetch_counts(), load_phases()
+            if empty_counts["misses"] != 2 or csvs != [p.read_bytes() for p in (pipe.bdd_ssml_csv, pipe.bdd_syntagme_ssml_csv,
+                                                                                  pipe.bdd_syntagme_synth_csv)]:
+                raise SystemExit(f"ingest {label}: the empty-cache measure step differs ({empty_counts})")
+            out["launches"][label] = {"pitch_candidates": counts["pitch_candidates"], "viterbi": counts["viterbi"]}
+            print(f"ingest {label} (natural {rate} Hz, Azure at 44100 Hz through the loopback stub, {audio_s:.1f} s): "
+                  f"warm launches {json.dumps({k: counts[k] for k in ('pitch_candidates', 'viterbi')})}, "
+                  f"{stub.posts - posts} posts; prefetch warm {json.dumps(pre_counts)} (cold {json.dumps(cold_prefetch)}), "
+                  f"{residents} resident corpus images bit-equal to their host loads; card={card}")
+            print(f"ingest {label} measure phases (s), prefetched: {json.dumps(warm_load)}; empty cache: {json.dumps(empty_load)}; "
+                  f"Measure step {per_step(warm)['Measure & Build SSML']:.4f} s prefetched, "
+                  f"{per_step(empty)['Measure & Build SSML']:.4f} s with an empty cache; CSVs byte-equal")
+            print(f"ingest {label} eight steps: warm {warm_s:.3f} s ({audio_s / warm_s:.1f} audio-s/s), cold {cold_s:.3f} s; "
+                  f"steps warm (s): {json.dumps(per_step(warm))}")
+    PREFETCH.clear()  # the later phases measure peak memory: no stale corpora left on the card
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4783,8 +5060,10 @@ def main() -> int:
     from prosody_control_french_tts_tpu_torch.core import profiling
     from prosody_control_french_tts_tpu_torch.core.pipeline import CSV_NAMES, measure_and_build_ssml
     from prosody_control_french_tts_tpu_torch.ops import candidates, kernels, pitch, viterbi
+    from prosody_control_french_tts_tpu_torch.prosody import measure
     from prosody_control_french_tts_tpu_torch.prosody.adjust import ProsodySettings
     from prosody_control_french_tts_tpu_torch.prosody.measure import bucket_length, prepare_voice
+    from prosody_control_french_tts_tpu_torch.utils import native_audio
     from prosody_control_french_tts_tpu_torch.utils.synth import synth_voice
 
     card = card_line()
@@ -4797,6 +5076,10 @@ def main() -> int:
     lib = kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s ({kernels.build().name})")
     print_ptxas_report(ptxas, lib)
+    t0 = time.perf_counter()
+    native_audio.library()
+    native_build_s = time.perf_counter() - t0
+    print(f"build: native ingest {native_build_s:.2f} s ({native_audio.build().name})")
 
     settings = ProsodySettings()
     voice_name = "fr-FR-DeniseNeural"
@@ -4880,6 +5163,9 @@ def main() -> int:
         # -- 4. the eight-step voice pipeline --------------------------------
         pipe_counts = pipeline_phase(tmp, args.seed, card)
 
+        # -- 25. the native ingest, the corpus prefetch and the Azure backend --
+        ingest = ingest_phase(tmp, args.seed, card, seg_files, native_build_s)
+
         # -- 15. the multi-voice pipeline and its denoisers --------------------
         mv = multi_voice_phase(tmp, card, cap_b.calls[0][0])
 
@@ -4890,6 +5176,8 @@ def main() -> int:
         cde_rows = kernels_cde_phase(seg_files, card)
         for row in cde_rows:
             row["launches"] = pipe_counts["chunk_cumsum" if row["name"] == "chunk_cumsum" else "frames"]
+    # the pipelines' prefetched corpora are stale now; the phases below read peak memory
+    measure.PREFETCH.clear()
 
     # -- 6. kernels A and B vs plain on the measure path's own tensors ------
     (r, k, min_lag, max_lag, vth), _ = cap_a.calls[0]
@@ -4938,7 +5226,8 @@ def main() -> int:
         extra_b = dict(floor, ms_s30=mv["viterbi_s30_ms"], ms_s10=mv["viterbi_s10_ms"]) if spec is KERNEL_B else {}
         rows_out.append(dict(spec, launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                              bound_by="bytes", library_ms=lib_ms, check="pass",
-                             multi_voice_launches=mv["launches"][spec["name"]], **extra_b))
+                             multi_voice_launches=mv["launches"][spec["name"]],
+                             ingest_launches={k: v[spec["name"]] for k, v in ingest["launches"].items()}, **extra_b))
         extra = (f"; chain_floor_ms={floor['chain_floor_ms']:.4f} ({floor['chain_floor']}); "
                  f"the one-warp design: {B_PREVIOUS_MS} ms (PERF.md, not measured here)") if spec is KERNEL_B else (
             f" (CUDA-graph replay over two copies of r, L2 cold; on one copy {ms_a_one_copy:.4f}, between CUDA events "
@@ -4965,6 +5254,7 @@ def main() -> int:
     ctc = ctc_align_phase(card)
     with tempfile.TemporaryDirectory() as tmp2:
         ap = aligner_pipeline_phase(Path(tmp2), args.seed, card)
+    measure.PREFETCH.clear()
     rows_out.append(ctc_kernel_row(ctc["calls"] + ap["ctc"]["calls"], ap["ctc"]["counts"]["ctc_viterbi"], card, lib))
 
     # -- 20. the break-predictor serving path ---------------------------------

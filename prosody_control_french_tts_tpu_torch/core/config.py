@@ -5,11 +5,12 @@ reference's keys and defaults, real ``${ENV_VAR}`` interpolation in every
 string value, and the framework's extra keys (``tts_backend``, ``aligner``,
 ``pos_backend``). ``multiprocessing: true`` with more than one voice sends
 ``main()`` through ``core.batch_runner`` (one batched measure pass for
-every voice, the counterpart of the reference's process pool). Keys that
-only unported parts read (the Azure key and region, Whisper, the pool's
-``num_processes``) stay in ``raw``, which ``used_config.yaml`` writes;
-``ab_test`` (the A/B-test export's settings, which the ``abtest`` command
-reads) is a field as well. ``load_config`` reads YAML and imports
+every voice, the counterpart of the reference's process pool). The Azure
+backend's key file and region are fields, with :meth:`PipelineConfig.read_azure_key`.
+Keys that nothing in the port reads (the JAX package's Whisper model and
+device, the pool's ``num_processes``) stay in ``raw``, which
+``used_config.yaml`` writes; ``ab_test`` (the A/B-test export's settings,
+which the ``abtest`` command reads) is a field as well. ``load_config`` reads YAML and imports
 PyYAML inside the function: only the command line needs it.
 """
 
@@ -49,8 +50,10 @@ class PipelineConfig:
     base_dir: Path
     data_dir: str = "Data/voice"
     out_dir: str = "Out"
+    azure_key_file: str = ""
     voice_names: list[str] = field(default_factory=list)
     azure_voice_name: str = "fr-FR-HenriNeural"
+    azure_region: str = "francecentral"
     silence: SilenceSettings = field(default_factory=SilenceSettings)
     prosody: ProsodySettings = field(default_factory=ProsodySettings)
     steps_to_run: list[str] | None = None
@@ -70,6 +73,18 @@ class PipelineConfig:
     def out_path(self) -> Path:
         return self.base_dir / self.out_dir
 
+    def read_azure_key(self) -> str:
+        """The key in ``azure_key_file`` (relative to ``base_dir``), else
+        the ``AZURE_API_KEY`` variable, else empty. An unset key file is not
+        read: the JAX package resolves ``""`` to ``base_dir`` and fails to
+        read that directory, so its default configuration does not build."""
+        p = Path(self.azure_key_file)
+        if not p.is_absolute():
+            p = self.base_dir / p
+        if self.azure_key_file and p.is_file():
+            return p.read_text(encoding="utf-8").strip()
+        return os.environ.get("AZURE_API_KEY", "")
+
     @classmethod
     def from_dict(cls, cfg: dict, base_dir: str | Path) -> "PipelineConfig":
         cfg = _interp(cfg)
@@ -81,8 +96,10 @@ class PipelineConfig:
             base_dir=Path(base_dir),
             data_dir=cfg.get("data_dir", "Data/voice"),
             out_dir=cfg.get("out_dir", "Out"),
+            azure_key_file=cfg.get("azure_key_file", ""),
             voice_names=list(voices),
             azure_voice_name=cfg.get("azure_voice_name", "fr-FR-HenriNeural"),
+            azure_region=cfg.get("azure_region", "francecentral"),
             silence=SilenceSettings(
                 min_silence_len=sil.get("min_silence_len", 1000),
                 silence_thresh=sil.get("silence_thresh", -50),

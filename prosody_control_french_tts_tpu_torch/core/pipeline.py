@@ -26,9 +26,15 @@ aligner call and the measure step. ``main()`` runs every voice of a
 config, with ``multiprocessing: true`` through ``core.batch_runner`` (one
 batched measure pass for all voices).
 
-Not ported: the Azure backend (a backend object may be passed in), the
-contextual POS tagger, and the JAX package's corpus prefetch hooks, which
-move no result.
+The TTS backend is ``tts_backend``'s (``azure``: the Azure REST client,
+``tts.azure``; ``fake``: the deterministic fake) unless a backend object is
+passed in. The POS backend is ``pos_backend``'s (the lexicon, or the
+contextual tagger on the pipeline's device). The corpus prefetch
+(``prosody.measure.prefetch_corpus`` / ``prefetch_segment``) loads and
+uploads the natural corpus after the silence split and again at the start
+of Align (a no-op when its files are unchanged), each raw segment as Raw
+Synthesis writes it, and the raw corpus after it, so that the measure step
+finds both corpora loaded and on the device.
 ``measure_and_build_ssml`` runs step 4 alone.
 """
 
@@ -54,7 +60,7 @@ from ..models.pos_tagger import get_pos_backend
 from ..ops.energy import split_on_silence_ranges
 from ..ops.kernels import resolve_device
 from ..prosody.adjust import ProsodySettings
-from ..prosody.measure import MeasureResult, measure_voice, segment_sort_key
+from ..prosody.measure import MeasureResult, measure_voice, prefetch_corpus, prefetch_segment, segment_sort_key
 from ..ssml import emit as ssml_emit
 from ..ssml.parse import combine_training_data, write_training_json
 from ..tts.base import TTSBackend
@@ -62,7 +68,7 @@ from ..tts.stitch import stitch_rows
 from ..utils import fr_pos, yaml_emit
 from ..utils.text import clean_transcript
 from ..utils.textgridio import read_textgrid, write_textgrid
-from ..utils.wavio import Audio, read_wav, write_wav
+from ..utils.wavio import Audio, read_wav, wav_info, write_wav
 from .config import PipelineConfig
 from .profiling import StepTimer, phase
 
@@ -187,14 +193,15 @@ class AudioPipeline:
         self.pos_backend = get_pos_backend(cfg.pos_backend, device=self.device)
 
     def _make_tts(self) -> TTSBackend:
+        """``tts_backend: fake`` → the fake; anything else → the Azure REST
+        client (no network call until the first synthesis)."""
         if self.cfg.tts_backend == "fake":
             from ..tts.fake import FakeBackend
 
             return FakeBackend()
-        raise NotImplementedError(
-            f"tts_backend {self.cfg.tts_backend!r} is not ported to PyTorch (it needs the network); "
-            "use tts_backend: fake or pass a backend object as tts="
-        )
+        from ..tts.azure import AzureBackend
+
+        return AzureBackend(api_key=self.cfg.read_azure_key(), region=self.cfg.azure_region, voice=self.cfg.azure_voice_name)
 
     def _segment_files(self) -> list[Path]:
         return sorted((self.voice_dir / "audio").glob("*.wav"), key=segment_sort_key)
@@ -268,6 +275,10 @@ class AudioPipeline:
             for i, (s, e) in enumerate(ranges):
                 write_wav(out_dir / f"segment_ph{i + 1}.wav", audio.slice_ms(s, e))
         log.info("silence split: %d segments", len(ranges))
+        # the natural corpus is final: load and upload it while the next
+        # steps work
+        with phase("preprocess/prefetch"):
+            prefetch_corpus(self._segment_files(), device=self.device)
 
     # 2 ------------------------------------------------------------------
     def _aligner(self):
@@ -291,6 +302,7 @@ class AudioPipeline:
         seg_files = self._segment_files()
         if not seg_files:
             raise FileNotFoundError(f"no segments in {self.voice_dir / 'audio'}")
+        prefetch_corpus(seg_files, device=self.device)
         precomputed = self.cfg.aligner == "precomputed"
         if not precomputed:
             shutil.rmtree(tg_dir, ignore_errors=True)
@@ -352,7 +364,12 @@ class AudioPipeline:
         out_txt = self.raw_synth_dir / "transcription"
         out_audio.mkdir(parents=True, exist_ok=True)
         out_txt.mkdir(parents=True, exist_ok=True)
-        for wav_path in self._segment_files():
+        seg_files = self._segment_files()
+        try:
+            nat_rate = wav_info(seg_files[0])[1] if seg_files else None
+        except (OSError, ValueError):
+            nat_rate = None
+        for wav_path in seg_files:
             stem = wav_path.stem
             src = self.transcription_raw_dir / f"{stem}.txt"
             if not src.exists():
@@ -365,7 +382,16 @@ class AudioPipeline:
                 "xmlns:mstts=\"https://www.w3.org/2001/mstts\" xml:lang='fr-FR'>"
                 f"<voice name='{self.cfg.azure_voice_name}'>{text}</voice></speak>"
             )
-            write_wav(out_audio / f"{stem}.wav", self.tts.synthesize(ssml))
+            out_path = out_audio / f"{stem}.wav"
+            write_wav(out_path, self.tts.synthesize(ssml))
+            # each segment's upload runs behind the synthesis of the next
+            prefetch_segment(out_path, rate_expect=nat_rate, device=self.device)
+        # the raw corpus, assembled on the device from the resident rows or
+        # loaded and uploaded; the paths and rate are prepare_voice's, so that
+        # the keys match
+        if seg_files:
+            raw_paths = [out_audio / f"{p.stem}.wav" for p in seg_files]
+            prefetch_corpus([p if p.exists() else None for p in raw_paths], rate_expect=nat_rate, device=self.device)
 
     # 4 ------------------------------------------------------------------
     def measure_prosody_and_build_ssml(self):

@@ -6,7 +6,7 @@
 - :func:`hybrid_mesh` builds a ("dcn", "data", "model") mesh: the model dim
   inside a host (NVLink), data within the host's slice, slices across hosts,
   so that only the data-parallel reductions cross the network;
-- :func:`host_local_batch_slice` gives each process the rows it feeds.
+- :func:`host_local_batch_slice` gives each host the rows it feeds.
 
 One process drives one device, so a slice is a host: ranks are grouped by
 ``LOCAL_WORLD_SIZE`` (torchrun's variable), or form one slice when it is
@@ -86,8 +86,16 @@ def hybrid_mesh(model: int = 1, data: int | None = None, slices: int | None = No
 
 
 def host_local_batch_slice(global_batch: int) -> slice:
-    """The row range of the global batch this process feeds (each process
-    materialises only its rows; the last takes the remainder)."""
-    p, n = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    """The row range of the global batch this process's host feeds (each
+    host materialises only its rows; the last host takes the remainder).
+    Hosts are groups of ``LOCAL_WORLD_SIZE`` ranks (one host when it is
+    unset or does not divide the world, as in :func:`hybrid_mesh`), so
+    every rank of a host gets the same rows, as every device of one JAX
+    process does."""
+    rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if not local or world % local:
+        local = world  # as hybrid_mesh: one host
+    p, n = rank // local, world // local
     per = global_batch // n
     return slice(p * per, (p + 1) * per if p < n - 1 else global_batch)

@@ -16,9 +16,13 @@ segment axis (the multi-voice pipeline, ``core.batch_runner``).
 
 Durations, word counts and the clamp/smooth math run on the host
 (``prosody.adjust``); host work is otherwise file I/O, TextGrid parsing and
-syntagme bookkeeping. Lengths are padded to ``bucket_length`` buckets: the
-F0 frame grid is centred over the padded buffer, so the bucket rule is kept
-exactly as the JAX package's to keep the same frames.
+syntagme bookkeeping. Corpora are read through the native ingest
+(``utils.native_audio``: one target rate, the windowed-sinc resampler,
+int16 straight from PCM16 files), and the pipeline prefetches them
+(:class:`CorpusPrefetch`): loaded, and on a card uploaded, before the
+measure step asks for them. Lengths are padded to ``bucket_length``
+buckets: the F0 frame grid is centred over the padded buffer, so the bucket
+rule is kept exactly as the JAX package's to keep the same frames.
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ from ..ops.pitch import PitchParams, PitchTrack, _geometry, _pitch_frames, media
 from ..ops.rangemax import RangeMax
 from ..parallel.mesh import production_data_mesh
 from ..ssml.syntagme import Syntagme, extract_words_and_pauses, pipeline_syntagmes
-from ..utils import fr_pos
+from ..utils import fr_pos, native_audio
 from ..utils.textgridio import read_textgrid
-from ..utils.wavio import read_wav, resample
+from ..utils.wavio import read_wav, resample, wav_info
 from .adjust import ProsodySettings, pitch_adjust_pct, rate_adjust_pct, segment_baselines, smooth_series, volume_adjust_pct
 
 
@@ -157,10 +161,22 @@ def measure_raw(raw, raw_len, win_raw, rate: float, T2: int):
 
 def _load_padded(paths, rate_expect=None):
     """Read wavs (None: a missing file) → ([S, T] padded corpus — int16
-    when that image is exact, else float32 — lengths, rate, ok-flags)."""
+    when that image is exact, else float32 — lengths, rate, ok-flags).
+
+    When every item is a path, the native ingest reads them
+    (``utils.native_audio``): one target rate for the whole corpus
+    (``rate_expect``, else the first readable file's), each file resampled
+    to it by the windowed sinc, the stride the bucket of the longest file
+    counted in output samples; mono PCM16 at that rate is copied as int16,
+    anything else decoded to float32. A file that cannot be read gets length
+    0. A None item sends the corpus through the Python path (``read_wav``,
+    scipy's resampler), where a missing file gets length 1."""
+    items = list(paths)
+    if items and all(isinstance(p, (str, Path)) for p in items):
+        return _load_native(items, rate_expect)
     sigs, ok = [], []
     rate = rate_expect
-    for item in paths:
+    for item in items:
         if item is None:
             sigs.append(np.zeros(1, np.float32))
             ok.append(False)
@@ -186,6 +202,32 @@ def _load_padded(paths, rate_expect=None):
     return _as_int16_if_lossless(out), lens, rate or 44100, np.asarray(ok)
 
 
+def _load_native(paths: list, rate_expect=None):
+    """``_load_padded`` of a corpus of paths, through the native ingest."""
+    sizes, rates = [], []
+    for p in paths:
+        try:
+            frames, file_rate = wav_info(p)  # the headers only
+        except (ValueError, OSError):
+            frames, file_rate = 1, 0
+        sizes.append(frames)
+        rates.append(file_rate)
+    valid_rates = [r for r in rates if r > 0]
+    # an explicit target always: a mixed-rate corpus is resampled to one
+    # rate, and the stride counts output samples (the loader resamples
+    # before it clips to the stride)
+    target = int(rate_expect or (valid_rates[0] if valid_rates else 0))
+    if target:
+        sizes = [int(np.ceil(f * target / r)) if r and r != target else f for f, r in zip(sizes, rates)]
+    T = bucket_length(max(sizes))
+    res16 = native_audio.load_batch_i16(paths, stride=T, target_rate=target)
+    if res16 is not None:
+        batch, lens, rate = res16
+        return batch, lens, rate, np.asarray(lens > 0)
+    batch, lens, rate = native_audio.load_batch(paths, stride=T, target_rate=target)
+    return _as_int16_if_lossless(batch), lens, rate, np.asarray(lens > 0)
+
+
 def _as_int16_if_lossless(out: np.ndarray) -> np.ndarray:
     """The int16 image of the corpus when that conversion is exact; the
     device casts back, so results are unchanged and the upload halves."""
@@ -195,6 +237,211 @@ def _as_int16_if_lossless(out: np.ndarray) -> np.ndarray:
 
 def _ms_to_samp(ms: float, rate: int) -> int:
     return int(ms * rate / 1000.0)
+
+
+# ---------------------------------------------------------------------------
+# corpus prefetch
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Resident:
+    """A corpus or segment image on a device. On a card it was copied (or
+    assembled) on the device's copy stream: ``event`` marks the end of that
+    work, and ``pinned``, the host image it was copied from, is kept for as
+    long as the entry lives. On the CPU it is the host array itself."""
+
+    tensor: torch.Tensor
+    event: object = None
+    pinned: object = None
+
+    def ready(self) -> torch.Tensor:
+        """The tensor, safe to read on its device's current stream (which
+        waits on ``event``; the tensor, allocated on the copy stream, is
+        recorded on the current one)."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.tensor.device)
+            stream.wait_event(self.event)
+            self.tensor.record_stream(stream)
+        return self.tensor
+
+
+def _corpus_key(paths, rate_expect):
+    """(path, mtime, size) of every file and the target rate: a rewritten
+    file misses."""
+    items = []
+    for p in paths:
+        if p is None:
+            items.append(None)
+            continue
+        try:
+            st = Path(p).stat()
+        except OSError:
+            items.append((str(p), -1, -1))
+            continue
+        items.append((str(p), st.st_mtime_ns, st.st_size))
+    return (tuple(items), int(rate_expect or 0))
+
+
+def _device_key(dev: torch.device) -> torch.device:
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class CorpusPrefetch:
+    """Corpora and segments loaded (and, on a card, uploaded) before the
+    measure step asks for them. The pipeline calls :func:`prefetch_corpus`
+    the moment a corpus is final on disk and :func:`prefetch_segment` after
+    each raw segment is written: the host load runs in the step that makes
+    the files, and the upload, on a copy stream, runs behind the steps that
+    follow. ``prepare_voice`` then takes the host arrays and the resident
+    image from here (:func:`_load_padded_cached`).
+
+    Entries are keyed by (path, mtime, size) of every file and the target
+    rate, at most ``CORPUS_CAP`` corpora and ``SEGMENT_CAP`` segments, the
+    oldest evicted first. ``hits`` and ``misses`` count the consumer's
+    look-ups, ``assembled`` the corpora built on the device from resident
+    segment rows."""
+
+    # two corpora a voice for eight voices
+    CORPUS_CAP = 16
+    SEGMENT_CAP = 64
+
+    def __init__(self):
+        self.corpora: dict = {}  # key -> ((batch, lens, rate, ok), Resident | None)
+        self.segments: dict = {}  # key -> (samples, Resident of the bucketed int16 row)
+        self.streams: dict = {}  # card -> its copy stream
+        self.hits = self.misses = self.assembled = 0
+
+    def clear(self) -> None:
+        self.corpora.clear()
+        self.segments.clear()
+        self.hits = self.misses = self.assembled = 0
+
+    def upload(self, a: np.ndarray, dev: torch.device) -> Resident:
+        """``a`` on ``dev``: a copy from pinned memory on the card's copy
+        stream, or the host array itself on the CPU."""
+        if dev.type != "cuda":
+            return Resident(torch.from_numpy(a))
+        pinned = torch.from_numpy(a).pin_memory()
+        stream = self._stream(dev)
+        with on_device(dev), torch.cuda.stream(stream):
+            t = pinned.to(dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return Resident(t, event, pinned)
+
+    def stack(self, rows: list, width: int, dev: torch.device) -> Resident:
+        """The resident rows as one zero-padded [S, width] int16 image,
+        built on the card's copy stream after the rows' own copies."""
+        if dev.type != "cuda":
+            out = torch.zeros((len(rows), width), dtype=torch.int16)
+            for i, r in enumerate(rows):
+                out[i, : r.tensor.shape[0]] = r.tensor
+            return Resident(out)
+        stream = self._stream(dev)
+        with on_device(dev), torch.cuda.stream(stream):
+            out = torch.zeros((len(rows), width), dtype=torch.int16, device=dev)
+            for i, r in enumerate(rows):
+                out[i, : r.tensor.shape[0]].copy_(r.tensor)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return Resident(out, event)
+
+    def _stream(self, dev: torch.device):
+        if dev not in self.streams:
+            self.streams[dev] = torch.cuda.Stream(dev)
+        return self.streams[dev]
+
+    @staticmethod
+    def put(table: dict, cap: int, key, value) -> None:
+        while len(table) >= cap:
+            table.pop(next(iter(table)))
+        table[key] = value
+
+
+PREFETCH = CorpusPrefetch()
+
+
+def prefetch_segment(path, rate_expect=None, device="cuda") -> None:
+    """Load one wav and start its upload to ``device``, right after a
+    synthesis loop writes it; :func:`prefetch_corpus` then assembles the
+    corpus from the resident rows on the device. Only mono PCM16 at the
+    target rate (``rate_expect``, else the file's) is taken: a file that
+    cannot be read, or needs a resample or a decode, is left to the corpus
+    load."""
+    dev = _device_key(resolve_device(device))
+    key = _corpus_key([path], rate_expect)
+    if key in PREFETCH.segments:
+        return
+    try:
+        frames, file_rate = wav_info(path)
+    except (ValueError, OSError):
+        return
+    target = int(rate_expect or file_rate)
+    if not target or file_rate != target:
+        return
+    res = native_audio.load_batch_i16([path], stride=bucket_length(frames), target_rate=target)
+    if res is None:
+        return
+    row, lens, _ = res
+    PREFETCH.put(PREFETCH.segments, PREFETCH.SEGMENT_CAP, key, (int(lens[0]), PREFETCH.upload(row[0], dev)))
+
+
+def _assemble_from_segments(paths, host, rate_expect, dev: torch.device):
+    """The [S, T] corpus image on ``dev`` from resident segment rows, or None
+    unless the host load is int16, every row is resident there (an int16
+    load at the same rate: the same bytes) with the host load's length, and
+    the production data mesh is off (its slots take their rows from the
+    host)."""
+    if production_data_mesh(dev) is not None:
+        return None
+    batch, lens, _rate, _ok = host
+    if batch.dtype != np.int16:
+        return None
+    rows = []
+    for p, n in zip(paths, lens):
+        hit = PREFETCH.segments.get(_corpus_key([p], rate_expect))
+        if hit is None or hit[0] != int(n) or hit[1].tensor.device != dev:
+            return None
+        rows.append(hit[1])
+    T = batch.shape[1]
+    if any(r.tensor.shape[0] > T for r in rows):
+        return None
+    PREFETCH.assembled += 1
+    return PREFETCH.stack(rows, T, dev)
+
+
+def prefetch_corpus(paths, rate_expect=None, device="cuda") -> None:
+    """Load a wav corpus as ``_load_padded`` does and start its upload to
+    ``device`` (nothing on a repeat call for unchanged files). When every
+    segment is resident (:func:`prefetch_segment`), the padded image is
+    assembled on the device instead of uploaded. Under the production data
+    mesh only the host arrays are kept."""
+    paths = list(paths)
+    dev = _device_key(resolve_device(device))
+    key = _corpus_key(paths, rate_expect)
+    if not paths or key in PREFETCH.corpora:
+        return
+    host = _load_padded(paths, rate_expect=rate_expect)
+    res = _assemble_from_segments(paths, host, rate_expect, dev)
+    if res is None and production_data_mesh(dev) is None:
+        res = PREFETCH.upload(host[0], dev)
+    PREFETCH.put(PREFETCH.corpora, PREFETCH.CORPUS_CAP, key, (host, res))
+
+
+def _load_padded_cached(paths, rate_expect=None):
+    """(batch, lens, rate, ok, Resident or None): a prefetched corpus when
+    its files are unchanged, else ``_load_padded``."""
+    hit = PREFETCH.corpora.get(_corpus_key(list(paths), rate_expect))
+    if hit is not None:
+        PREFETCH.hits += 1
+        (batch, lens, rate, ok), res = hit
+        return batch, lens, rate, ok, res
+    PREFETCH.misses += 1
+    batch, lens, rate, ok = _load_padded(paths, rate_expect=rate_expect)
+    return batch, lens, rate, ok, None
 
 
 @dataclass
@@ -216,6 +463,10 @@ class PreparedVoice:
     win_raw_dev: np.ndarray
     mask: np.ndarray
     raw_slice_empty: np.ndarray
+    # prefetched images of nat / raw_for_device (Resident), set only where
+    # the host array is used as loaded (no promotion, no fallback rewrite)
+    nat_dev: Resident | None = None
+    raw_dev: Resident | None = None
 
 
 def prepare_voice(
@@ -243,16 +494,19 @@ def prepare_voice(
         ]
 
     with phase("measure/prepare/load_nat"):
-        nat, nat_len, rate, _ = _load_padded(seg_files)
+        nat, nat_len, rate, _, nat_dev = _load_padded_cached(seg_files)
     raw_paths = [raw_audio_dir / f"{n}.wav" for n in names]
     with phase("measure/prepare/load_raw"):
-        raw, raw_len, _, raw_ok = _load_padded([p if p.exists() else None for p in raw_paths], rate_expect=rate)
+        raw, raw_len, _, raw_ok, raw_dev = _load_padded_cached(
+            [p if p.exists() else None for p in raw_paths], rate_expect=rate
+        )
     if nat.dtype != raw.dtype:
         # an int16 image must never mix with float32: promote the int16 side
+        # (its prefetched image no longer matches)
         if nat.dtype == np.int16:
-            nat = pcm.i16_to_f32(nat)
+            nat, nat_dev = pcm.i16_to_f32(nat), None
         if raw.dtype == np.int16:
-            raw = pcm.i16_to_f32(raw)
+            raw, raw_dev = pcm.i16_to_f32(raw), None
 
     S = len(names)
     N = max(1, max(len(s) for s in synts_per_seg))
@@ -284,6 +538,7 @@ def prepare_voice(
     win_raw_dev = win_raw.copy()
     T2 = raw.shape[1]
     if (~raw_ok).any():
+        raw_dev = None  # the rewrite below leaves the prefetched image behind
         if nat.shape[1] > T2:
             raw_for_device = np.zeros((S, nat.shape[1]), raw.dtype)
             raw_for_device[:, :T2] = raw
@@ -310,6 +565,8 @@ def prepare_voice(
         win_raw_dev=win_raw_dev,
         mask=mask,
         raw_slice_empty=raw_slice_empty,
+        nat_dev=nat_dev,
+        raw_dev=raw_dev,
     )
 
 
@@ -511,7 +768,11 @@ def _unpack6(arr: np.ndarray):
 def _pack_group(items, dev: torch.device):
     """One group's voices on the device, concatenated on the segment axis:
     audio padded to the group's T and T2 (int16 kept only when every voice
-    of the group has it), windows and mask padded to the group's N."""
+    of the group has it), windows and mask padded to the group's N. A
+    voice's prefetched image (``PreparedVoice.nat_dev`` / ``raw_dev``) takes
+    the place of its upload where it lies on ``dev`` with the host array's
+    shape and dtype."""
+    dev_key = _device_key(dev)
 
     def put(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
@@ -521,20 +782,26 @@ def _pack_group(items, dev: torch.device):
             return t
         return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1]) + tuple(t.shape[2:]))], dim=1)
 
-    def audio(arrays, width):
-        mixed = len({a.dtype for a in arrays}) > 1
-        return torch.cat([pad_cols(_as_f32(put(a)) if mixed else put(a), width) for a in arrays])
+    def image(a: np.ndarray, res: Resident | None) -> torch.Tensor:
+        if res is not None and res.tensor.device == dev_key and tuple(res.tensor.shape) == a.shape \
+                and res.tensor.dtype == torch.from_numpy(a[:0]).dtype:
+            return res.ready()
+        return put(a)
+
+    def audio(pairs, width):
+        mixed = len({a.dtype for a, _ in pairs}) > 1
+        return torch.cat([pad_cols(_as_f32(image(a, r)) if mixed else image(a, r), width) for a, r in pairs])
 
     preps = [p for _, p in items]
     T = max(p.nat.shape[1] for p in preps)
     T2 = max(p.raw_for_device.shape[1] for p in preps)
     N = max(p.win_nat.shape[1] for p in preps)
     return dict(
-        nat=audio([p.nat for p in preps], T),
+        nat=audio([(p.nat, p.nat_dev) for p in preps], T),
         nat_len=torch.cat([put(p.nat_len, torch.int64) for p in preps]),
         win_nat=torch.cat([pad_cols(put(p.win_nat, torch.int64), N) for p in preps]),
         mask=torch.cat([pad_cols(put(p.mask), N) for p in preps]),
-        raw=audio([p.raw_for_device for p in preps], T2),
+        raw=audio([(p.raw_for_device, p.raw_dev) for p in preps], T2),
         raw_len=torch.cat([put(p.raw_len_dev, torch.int64) for p in preps]),
         win_raw=torch.cat([pad_cols(put(p.win_raw_dev, torch.int64), N) for p in preps]),
         T=T,

@@ -1,2 +1,2 @@
-"""TTS backends (the protocol and the deterministic fake) and the waveform
-stitcher."""
+"""TTS backends (the protocol, the Azure REST client and the deterministic
+fake) and the waveform stitcher."""

@@ -10,15 +10,23 @@ integer view available.
 
 Pure-stdlib/scipy implementation: ``wave`` handles canonical PCM; a small
 RIFF parser covers float32/24-bit/extensible WAVs that ``wave`` rejects.
+``write_wav`` writes float32 samples through the native ingest
+(``utils.native_audio``), other dtypes through numpy, with the same
+quantization; corpora are read through the native ingest by
+``prosody.measure``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from . import native_audio
 
 
 @dataclass
@@ -143,7 +151,7 @@ def read_wav(path: str | Path) -> Audio:
 
 def wav_info(path: str | Path) -> tuple[int, int]:
     """(mono_sample_count, rate) from the RIFF headers only — no sample
-    decode (used to size batch buffers before a load)."""
+    decode (used to size batch buffers before the native loader runs)."""
     with open(path, "rb") as f:
         head = f.read(12)
         if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"WAVE":
@@ -181,6 +189,13 @@ def write_wav(path: str | Path, audio: Audio | np.ndarray, rate: int | None = No
         channels = 1
     else:
         channels = samples.shape[1]
+    if samples.dtype == np.float32:
+        # one pass in the native ingest (the same quantization; the numpy
+        # path below makes ~5 passes and 2 whole-buffer copies)
+        if not native_audio.write_wav_f32(path, samples, int(rate), channels):
+            err = ctypes.get_errno()
+            raise OSError(err, os.strerror(err), str(path))
+        return
     pcm = np.clip(np.round(samples * 32768.0), -32768, 32767).astype("<i2")
     data = pcm.tobytes()
     hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"

@@ -10,7 +10,9 @@ and ``shard_train_inputs`` + ``make_train_step`` on ``make_mesh(data=2,
 model=2)``) and the port's single-process step on the same inputs.
 
 - ``initialize`` from the ``PCFT_*`` variables; ``hybrid_mesh`` with
-  ``LOCAL_WORLD_SIZE=2``; a cross-rank sum of ``host_local_batch_slice`` rows;
+  ``LOCAL_WORLD_SIZE=2``; ``host_local_batch_slice`` cut per host as JAX
+  cuts per process, with ``LOCAL_WORLD_SIZE=2`` (two hosts of two ranks) and
+  with it unset (one host), and a cross-rank sum of its rows;
 - ``measure_sharded`` on meshes (2, 2) and (4, 1), S 3 (one padded row):
   F0 within 1e-3 relative and LUFS within 0.01 dB of JAX, equal to the
   port's unsharded passes;
@@ -54,6 +56,8 @@ CASES = {
 JAX_CASES = ("dot-dense", "vmem-fused")
 QUANTS = ("int8", "int8b", "nf4")
 RANK_TIMEOUT_S = 240
+# global batches for host_local_batch_slice: even, with a remainder, fewer rows than ranks
+SLICE_BATCHES = (8, 9, 3)
 
 
 def train_batches():
@@ -188,6 +192,10 @@ def rank_main(inputs: str, out_dir: str) -> None:
     total = local.sum()
     dist.all_reduce(total)
     out["batch_sum"] = np.array(float(total))
+    out["host_slices_local2"] = np.array([(sl.start, sl.stop) for sl in map(host_local_batch_slice, SLICE_BATCHES)])
+    local_world = os.environ.pop("LOCAL_WORLD_SIZE")
+    out["host_slices_unset"] = np.array([(sl.start, sl.stop) for sl in map(host_local_batch_slice, SLICE_BATCHES)])
+    os.environ["LOCAL_WORLD_SIZE"] = local_world
 
     sr, args = measure_batch()
     for label, shape in (("2x2", (2, 2)), ("4x1", (4, 1))):
@@ -329,8 +337,34 @@ def test_hybrid_mesh_shapes(ranks):
 
 
 def test_host_local_rows_sum_to_the_full_batch(ranks):
-    want = float(np.arange(8 * 4, dtype=np.float32).sum())
-    assert {float(out["batch_sum"]) for out in ranks["ranks"]} == {want}
+    """With two hosts of two ranks, each host's rows are summed once per
+    rank of the host: the cross-rank sum is twice the full batch's, and the
+    first rank of each host holds half of it."""
+    full = np.arange(8 * 4, dtype=np.float32).reshape(8, 4)
+    assert {float(out["batch_sum"]) for out in ranks["ranks"]} == {2 * float(full.sum())}
+    halves = [full[slice(*ranks["ranks"][r]["host_slices_local2"][0])].sum() for r in (0, 2)]
+    assert float(sum(halves)) == float(full.sum())
+
+
+@pytest.mark.parametrize("label,hosts", [("local2", 2), ("unset", 1)])
+def test_host_local_batch_slice_cuts_per_host_like_jax(ranks, monkeypatch, label, hosts):
+    """Every rank's rows are those the JAX package's host_local_batch_slice
+    gives the process of its host (host = rank // LOCAL_WORLD_SIZE): the
+    ranks of a host get the same rows, the last host the remainder, and one
+    host (LOCAL_WORLD_SIZE unset) the whole batch."""
+    import jax
+
+    from prosody_control_french_tts_tpu.parallel import distributed as jdist
+
+    per_host = WORLD // hosts
+    for r, out in enumerate(ranks["ranks"]):
+        monkeypatch.setattr(jax, "process_index", lambda r=r: r // per_host)
+        monkeypatch.setattr(jax, "process_count", lambda: hosts)
+        want = [jdist.host_local_batch_slice(b) for b in SLICE_BATCHES]
+        got = out[f"host_slices_{label}"]
+        assert [tuple(g) for g in got] == [(w.start, w.stop) for w in want], (label, r)
+    if hosts == 1:
+        assert all((tuple(g) == (0, b)) for g, b in zip(ranks["ranks"][3]["host_slices_unset"], SLICE_BATCHES))
 
 
 @pytest.mark.parametrize("label", ["2x2", "4x1"])

@@ -38,7 +38,8 @@ def test_importing_every_module_loads_no_jax():
                  "align.train_ctc", "align.pretrain_ctc", "align.pretrain_whisper", "audio.corpus", "audio.convert",
                  "models.schedules", "core.checkpoint", "models.port_weights", "legacy.bdd", "legacy.needleman",
                  "legacy.voc", "viz.plotdata", "viz.acoustic", "viz.server", "__main__", "parallel.mesh",
-                 "parallel.sharding", "parallel.distributed", "parallel.measure_sharded"):
+                 "parallel.sharding", "parallel.distributed", "parallel.measure_sharded",
+                 "utils.native_audio", "tts.azure"):
         assert f"prosody_control_french_tts_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -56,10 +57,44 @@ def test_importing_every_module_loads_no_jax():
 
 def test_sources_name_neither_jax_nor_the_jax_package():
     pat = re.compile(r"\bjax\b|prosody_control_french_tts_tpu(?!_torch)")
-    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h")]
-    assert any(p.suffix == ".cu" for p in files)
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h", ".cpp")]
+    assert any(p.suffix == ".cu" for p in files) and any(p.suffix == ".cpp" for p in files)
     hits = [f"{p.relative_to(ROOT)}:{i}" for p in files for i, line in enumerate(p.read_text().splitlines(), 1) if pat.search(line)]
     assert not hits, hits
+
+
+def test_no_port_file_refers_to_the_jax_native_library():
+    """The port builds its own ingest from its own source: no file of the
+    port names the JAX side's ``native/`` directory or its ``libaudioio``,
+    the build reads and writes nothing there, and a process that reads a
+    corpus through the port maps no library from it."""
+    pat = re.compile(r"libaudioio|parent\.parent\.parent\s*/\s*[\"']native|[\"']\.\./native|(^|[\s\"'`(])native/(Makefile|audioio)")
+    files = [p for p in PKG.rglob("*") if p.is_file() and p.suffix not in (".pyc", ".npz", ".so", ".png", ".ico")]
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
+            for i, line in enumerate(p.read_text(errors="replace").splitlines(), 1) if pat.search(line)]
+    assert not hits, hits
+    from prosody_control_french_tts_tpu_torch.utils import native_audio
+
+    jax_native = (ROOT / "native").resolve()
+    assert native_audio.SOURCE.resolve().is_relative_to(PKG)
+    assert not native_audio.BUILD_DIR.resolve().is_relative_to(jax_native)
+    code = (
+        "import sys, numpy as np\n"
+        "from prosody_control_french_tts_tpu_torch.prosody.measure import _load_padded\n"
+        "from prosody_control_french_tts_tpu_torch.utils import native_audio, wavio\n"
+        "wavio.write_wav(sys.argv[1], np.zeros(4410, np.float32), 44100)\n"
+        "assert _load_padded([sys.argv[1]])[1].tolist() == [4410]\n"
+        "maps = open('/proc/self/maps').read()\n"
+        f"assert {str(jax_native)!r} not in maps and 'libaudioio' not in maps, maps\n"
+        "assert str(native_audio.build()) in maps\n"
+        "print('ok')\n"
+    )
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([sys.executable, "-c", code, str(Path(tmp) / "x.wav")], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
 
 
 def test_chip_smoke_imports_neither():

@@ -272,7 +272,8 @@ def test_config_matches_jax(tmp_path, monkeypatch):
     raw = dict(CONFIG, voice_names="${PCFT_TEST_VOICE}", multiprocessing=1, ab_test=None)
     j, t = JConfig.from_dict(raw, tmp_path), TConfig.from_dict(raw, tmp_path)
     for f in ("data_dir", "out_dir", "voice_names", "azure_voice_name", "steps_to_run",
-              "tts_backend", "aligner", "pos_backend", "raw", "data_path", "out_path"):
+              "tts_backend", "aligner", "pos_backend", "raw", "data_path", "out_path",
+              "azure_key_file", "azure_region"):
         assert getattr(t, f) == getattr(j, f), f
     # keys of unported parts live only in raw, as the reference reads them
     assert t.raw["multiprocessing"] == j.multiprocessing and t.raw["ab_test"] is None
@@ -306,13 +307,27 @@ def test_load_config_and_main(tmp_path):
         tconfig.load_config(tmp_path / "missing.yaml")
 
 
-@pytest.mark.parametrize("raw,exc,match", [
-    pytest.param({"tts_backend": "azure"}, NotImplementedError, "network", id="raw2-NotImplementedError-network"),
+@pytest.mark.parametrize("raw,region,key", [
+    pytest.param({"tts_backend": "azure", "azure_region": "westeurope"}, "westeurope", "k-env",
+                 id="raw2-NotImplementedError-network"),
 ])
-def test_pipeline_refuses_what_is_not_ported(tmp_path, raw, exc, match):
+def test_pipeline_refuses_what_is_not_ported(tmp_path, monkeypatch, raw, region, key):
+    """The port's pipeline refuses nothing the JAX one builds. The case kept
+    its id from when ``tts_backend: azure`` raised NotImplementedError (the
+    Azure client needs the network): it now builds the Azure REST client
+    with the config's region and voice and the key from ``AZURE_API_KEY``,
+    and makes no network call while doing so."""
+    from prosody_control_french_tts_tpu_torch.tts.azure import AzureBackend
+
+    def no_network(*args, **kwargs):
+        raise AssertionError("the pipeline's construction reached the network")
+
+    monkeypatch.setattr("urllib.request.urlopen", no_network)
+    monkeypatch.setenv("AZURE_API_KEY", key)
     cfg = TConfig.from_dict(dict({"tts_backend": "fake"}, **raw), tmp_path)
-    with pytest.raises(exc, match=match):
-        TPipeline("v", cfg, device="cpu")
+    pipe = TPipeline("v", cfg, device="cpu")
+    assert isinstance(pipe.tts, AzureBackend)
+    assert (pipe.tts.region, pipe.tts.voice, pipe.tts.api_key) == (region, cfg.azure_voice_name, key)
 
 
 DENOISE_CFG = {"data_dir": "Data/voice", "out_dir": "Out", "voice_names": ["dn"], "tts_backend": "fake",
