@@ -8,8 +8,10 @@ aligners (Whisper, CTC) alone and in the eight-step pipeline, the break
 predictors' serving path (the BERT tagger behind the SSML HTTP service),
 the contextual POS tagger with the evaluation layer, the training
 halves of the aligners and the separator, the parallel layer over a
-one-rank process group, and the native ingest, the corpus prefetch and the
-Azure backend against a loopback server.
+one-rank process group, the native ingest, the corpus prefetch and the
+Azure backend against a loopback server, and the cascade's two training
+stages at 7B as the reference sets them up (stage B on an NF4 base
+quantized on the card) with stage B served as int8b.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -290,13 +292,47 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     within one PCM16 step (the fake's float chunks are faded before they
     are quantized, the Azure payload's after). Alone:
     ``tools/ingest_phase.py``.
+26. (run after phase 24) the paper's two cascade training stages at the
+    full width and depth of ``qwen25_7b``, as the reference sets them up,
+    weights made on the card from the seed, each model freed before the
+    next is built. Stage A: ``attn_impl="flash"``, ``fused_qkv=False``,
+    ``remat=True`` with nothing saved, rank 8, alpha 16, bf16 frozen base,
+    ``init_train(accum=16, lr=3e-4)``, the fused loss; B 1, L 1024, one cold
+    micro-step then two whole updates (33 calls, a micro-batch a call). Stage
+    B: stage A's base quantized to NF4 on the card (``quantize_params``; one
+    layer's seven kernels byte-equal to the numpy quantizer on the host, run
+    alone after stage B), loaded with fresh adapters into
+    ``LLMConfig(quant="nf4")``, ``remat_policy="dots"``, accum 32, L 768 (65
+    calls). Each stage: every count at 0 just before and read just after
+    (FA forward twice a layer a call, the recompute's launch included; FA
+    backward once; H once a call each way; G, the dot path and the K/V
+    repeat never), the adapters changed after every accum-th call and no
+    other, frozen leaves (the NF4 codes and scales) bit-unchanged, every
+    adapter moved, batch 0's loss finite and falling over the two updates;
+    one update without remat on the same weights and batches, whose losses
+    and adapters must equal the remat update's (bit-equal, else within 1e-6
+    relative, printed); ms a micro-step and an update, trained tokens/s, the
+    cold micro-step, peak memory beside phase 14's 7B step; the flash
+    attention (layer 0's, forward and backward) and H on one more
+    micro-step's tensors against their plain versions, at FA_LIMITS and H's
+    full-width tolerances; a micro-step's split (torch.profiler, device
+    kernels and the host's CUDA API calls). Stage B also: the peak of a
+    micro-step whose product keeps the dequantized kernels (no remat), and
+    under remat that product's ms beside the port's. Stage B served: recoded to int8b on the card,
+    ``greedy_generate`` of 4 prompts of 64 tokens, 64 new, in bf16 (timed)
+    and in float32 against the tree dequantized to float32 (tokens equal,
+    near-ties explained as in phase 9). Then phase 8's 7B fused tree
+    quantized to int8b on the card, ``greedy_generate_fused`` (16 prompts of
+    64, 128 new; F counted layers x 127), its float32 tokens held to the
+    dequantized tree's likewise. Alone: ``tools/cascade_stages_phase.py``.
 
 It prints the card's name and power limit, one line per kernel, a
 ``{"kernels": [...]}`` line with fifteen entries (mask_ema, ctc_viterbi and
 ctc_loss, which replace no TPU kernel, among them; A's and B's rows carry
 ``cli_launches``, F's the converted 7B tree's; A's, B's, G's and H's
 ``parallel_launches``, phase 24's; A's and B's ``ingest_launches``, phase
-25's), and last ``{"ok": true,
+25's; FA's, H's and F's ``cascade_launches``, phase 26's, and FA's and H's
+``cascade_max_abs_err``), and last ``{"ok": true,
 "device": {...}}``. Any failed phase raises, and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
@@ -305,6 +341,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import csv
 import importlib
 import json
@@ -730,12 +767,20 @@ class Timed(Capture):
 
 class GradCapture(Capture):
     """Capture that also keeps the gradient that reaches each call's result
-    (``calls`` holds ``[args, grad or None]``)."""
+    (``calls`` holds ``[args, grad or None]``); with ``first``, of the first
+    call only (under remat a layer's later calls are recomputes, whose
+    results no gradient reaches)."""
+
+    def __init__(self, module, name, keep=None, first=False):
+        super().__init__(module, name, keep)
+        self.first = first
 
     def __enter__(self):
         def wrapper(*a, **k):
             self.count += 1
             out = self.orig(*a, **k)
+            if self.first and self.calls:
+                return out
             rec = [a, None]
             if out.requires_grad:
                 out.register_hook(lambda g: rec.__setitem__(1, g.detach()))
@@ -746,9 +791,11 @@ class GradCapture(Capture):
         return self
 
 
-def profile_device(fn):
+def profile_device(fn, runtime: dict | None = None):
     """fn() under torch.profiler → (wall ms, {kernel or copy name: [device
-    ms, count]}). One stream, so device times do not overlap."""
+    ms, count]}). One stream, so device times do not overlap. A ``runtime``
+    dict gets the host's CUDA API calls likewise ({name: [host ms, count]}:
+    launches, copies, synchronisations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -759,6 +806,10 @@ def profile_device(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
     for ev in prof.events():
+        if runtime is not None and ev.device_type == torch.autograd.DeviceType.CPU and ev.name.startswith("cu"):
+            slot = runtime.setdefault(ev.name, [0.0, 0])
+            slot[0] += ev.time_range.elapsed_us() / 1e3
+            slot[1] += 1
         # device-side rows that are no kernel or copy: the profiler's own buffer
         # requests, and the optimizer's annotation mirrored onto the stream
         if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith(("Activity Buffer", "Optimizer.")):
@@ -1856,25 +1907,54 @@ def profile_decode_steps(fp, cfg, tokens, steps: int = 8) -> dict:
     }
 
 
-def explain_mismatches(ref_tree, cfg, got, ref) -> int:
+def explain_mismatches(ref_tree, cfg, got, ref, last_logits=None) -> int:
     """Rows where two greedy runs differ: at the first differing position
-    the reference tree's logits of the two candidate tokens must be a near
-    tie (within 1e-4 of the largest |logit|), else the runs truly disagree.
-    Returns the number of such rows."""
+    the reference's logits of the two candidate tokens must be a near tie
+    (within 1e-4 of the largest |logit|), else the runs truly disagree. The
+    reference is a fused tree, or ``last_logits(prefix [1, j]) → [V]`` (a
+    training-layout model). Returns the number of such rows."""
     import torch
 
     from prosody_control_french_tts_tpu_torch.models import llm
 
+    def fused_last(prefix):
+        j = prefix.shape[1]
+        caches = llm.init_kv_caches_fused(cfg, 1, j, ref_tree["embed"].dtype, "cuda")
+        logits, _ = llm._fused_forward(ref_tree, cfg, prefix, torch.arange(j, device="cuda")[None], caches, 0, last_only=True)
+        return logits[0, -1]
+
+    last_logits = last_logits or fused_last
     rows = (got != ref).any(dim=1).nonzero()[:, 0].tolist()
     for r in rows:
         j = int((got[r] != ref[r]).nonzero()[0, 0])
-        caches = llm.init_kv_caches_fused(cfg, 1, j, ref_tree["embed"].dtype, "cuda")
-        logits, _ = llm._fused_forward(ref_tree, cfg, ref[r : r + 1, :j], torch.arange(j, device="cuda")[None], caches, 0, last_only=True)
-        lg = logits[0, -1]
+        with torch.no_grad():
+            lg = last_logits(ref[r : r + 1, :j])
         gap = float((lg[int(got[r, j])] - lg[int(ref[r, j])]).abs())
         if gap > 1e-4 * float(lg.abs().max()):
             raise SystemExit(f"int8b vs dequantized: row {r} differs at {j} with a logit gap of {gap}")
     return len(rows)
+
+
+def int8b_trees_in_float32(fq) -> list:
+    """An int8b fused tree for a float32 run: the codes and scales as they
+    are, every other leaf upcast; and the same tree dequantized to float32
+    (in bfloat16 the dense path rounds every dequantized weight, the block
+    partial sums do not, so tokens may part there by design)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import quant
+
+    def as_f32(w, dequantize):
+        if isinstance(w, dict):
+            if not dequantize:
+                return w
+            return quant.dequant_int8_block(w["codes"], w["scale"], torch.float32, w["codes"].shape[0] // w["scale"].shape[0])
+        return w.float()
+
+    return [
+        {**{k: as_f32(v, deq) for k, v in fq.items() if k != "layers"}, "layers": [{k: as_f32(v, deq) for k, v in lw.items()} for lw in fq["layers"]]}
+        for deq in (False, True)
+    ]
 
 
 def check_kernel_f(call, label: str) -> float:
@@ -2048,26 +2128,14 @@ def llm_phases(args, card: str) -> dict:
     toks_q, _ = serve(fq, bcfg, prompt, NEW)
     check_served_tokens(fq, bcfg, prompt, toks_q, NEW)
     _, warm_q = serve(fq, bcfg, prompt, NEW)
-    # the int8b tree against the same tree dequantized, in float32 (in
-    # bfloat16 the dense path rounds every dequantized weight, the block
-    # partial sums do not, so tokens may part there by design)
-    def as_f32(w, dequantize):
-        if isinstance(w, dict):
-            if not dequantize:
-                return w
-            return quant.dequant_int8_block(w["codes"], w["scale"], torch.float32, w["codes"].shape[0] // w["scale"].shape[0])
-        return w.float()
-
-    trees = [
-        {**{k: as_f32(v, deq) for k, v in fq.items() if k != "layers"}, "layers": [{k: as_f32(v, deq) for k, v in lw.items()} for lw in fq["layers"]]}
-        for deq in (False, True)
-    ]
+    # the int8b tree against the same tree dequantized, in float32
+    trees = int8b_trees_in_float32(fq)
     fcfg = dataclasses.replace(bcfg, dtype=torch.float32)
     got, _ = serve(trees[0], fcfg, prompt, NEW)
     ref, _ = serve(trees[1], fcfg, prompt, NEW)
     near_ties = explain_mismatches(trees[1], fcfg, got, ref)
     print(f"llm bench geometry int8b: {quant.quantized_bytes(fq) / 1e9:.3f} GB tree (bf16 {quant.quantized_bytes(fp) / 1e9:.3f} GB), "
-          f"quantized on the host in {quant_s:.1f} s; warm {warm_q:.3f} s, {B * NEW / warm_q:.1f} tokens/s; in float32 the int8b tokens equal "
+          f"quantized on the card in {quant_s:.2f} s; warm {warm_q:.3f} s, {B * NEW / warm_q:.1f} tokens/s; in float32 the int8b tokens equal "
           f"the dequantized tree's in {B - near_ties} of {B} rows ({near_ties} rows part at a logit near-tie); card={card}")
     del fp, fq, trees, cap_b, call_b
     torch.cuda.empty_cache()
@@ -2138,22 +2206,29 @@ def expected_train_counts(attn_impl: str, layers: int, steps: int) -> dict:
     return want
 
 
-def set_attn_impl(model, attn_impl: str) -> None:
-    """Switch a built DecoderLM's attention path: every module that reads the
-    config gets a copy with ``attn_impl`` replaced."""
+def set_cfg(model, **changes) -> None:
+    """Switch a built DecoderLM's config fields (``attn_impl``, ``remat``,
+    ``dtype``, ...): every module that reads the config gets a copy with
+    them replaced, and a new ``dtype`` reaches the projections too."""
     import dataclasses
+
+    from prosody_control_french_tts_tpu_torch.models.lora import LoRALinear
 
     for m in model.modules():
         if hasattr(m, "cfg"):
-            m.cfg = dataclasses.replace(m.cfg, attn_impl=attn_impl)
+            m.cfg = dataclasses.replace(m.cfg, **changes)
+        if isinstance(m, LoRALinear) and "dtype" in changes:
+            m.dtype = changes["dtype"]
 
 
 def profile_train_steps(run, steps: int) -> dict:
     """``run()`` (``steps`` optimizer steps) under torch.profiler: per-step
     wall and device time split into matrix products (cuBLAS), the attention
     kernels (G or the flash attention) and H, forward and backward, other
-    kernels and copies."""
-    wall_ms, by_name = profile_device(run)
+    kernels and copies; and the host's CUDA API calls (launches, copies,
+    synchronisations) by host ms and count."""
+    runtime: dict[str, list] = {}
+    wall_ms, by_name = profile_device(run, runtime)
     split = {"matmul": 0.0, "G_fwd": 0.0, "G_bwd": 0.0, "FA_fwd": 0.0, "FA_bwd": 0.0, "H_fwd": 0.0, "H_bwd": 0.0,
              "other_kernels": 0.0, "copies": 0.0}
     fa_bwd = {"dq": 0.0, "dkv": 0.0, "group_sum": 0.0}  # FA_bwd by kernel
@@ -2193,6 +2268,7 @@ def profile_train_steps(run, steps: int) -> dict:
         "share_of_device": {k: v / device_ms for k, v in split.items()} if device_ms else None,
         "kernels_per_step": sum(n for _, n in by_name.values()) / steps,
         "top_device_ms": [[k, round(t, 4), n] for k, (t, n) in top],
+        "host_cuda_api_ms": {k: [t / steps, n / steps] for k, (t, n) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:6]},
     }
 
 
@@ -2289,7 +2365,7 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
           f"cold first step {cold_ms:.1f} ms; peak device memory {peak_gb:.2f} GB; card={card}")
     dot_peak_gb = None
     if dot_peak:
-        set_attn_impl(model, "dot")
+        set_cfg(model, attn_impl="dot")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with Capture(llm, "_masked_attention", keep=1) as cap_dot:
@@ -2297,7 +2373,7 @@ def run_trainer(label: str, cfg, B: int, L: int, seed: int, card: str, scan: boo
             dot_loss = float(single(ids, mask))
             dot_ms = (time.perf_counter() - t0) * 1e3
         dot_peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-        set_attn_impl(model, cfg.attn_impl)
+        set_cfg(model, attn_impl=cfg.attn_impl)
         if cap_dot.count != cfg.layers or not np.isfinite(dot_loss):
             raise SystemExit(f"train {label}: the dot step took the dot path {cap_dot.count} times, loss {dot_loss}")
         print(f"train {label} peak device memory: {cfg.attn_impl} {peak_gb:.2f} GB, dot path {dot_peak_gb:.2f} GB for one step at the same shape "
@@ -2819,12 +2895,12 @@ def flash_phase(args, card: str, free) -> tuple:
     return rows, (split7, splitb), (stats7, statsb)
 
 
-def train_phases(args, card: str, prep) -> tuple[list, dict]:
+def train_phases(args, card: str, prep) -> tuple[list, dict, dict]:
     """Phases 11-14 of the module docstring, and phase 24 on phase 11's 7B
     trainer and ``prep`` (the measure voice, prepared on the host). Returns
     the rows of G forward, G backward, H forward, H backward and the flash
-    attention's forward and backward for the ``kernels`` line, and phase
-    24's results."""
+    attention's forward and backward for the ``kernels`` line, phase 24's
+    results, and phase 14's 7B stats (for phase 26)."""
     import dataclasses
     import gc
 
@@ -2900,7 +2976,7 @@ def train_phases(args, card: str, prep) -> tuple[list, dict]:
           f"7B L 1024 flash {stats7f['warm_ms']:.1f} ms per step, {stats7f['tokens_per_s']:.1f} tokens/s, peak {stats7f['peak_gb']:.2f} GB "
           f"(dot path {stats7f['dot_peak_gb']:.2f} GB); bench geometry L 768 flash {statsbf['warm_ms']:.1f} ms per step, "
           f"{statsbf['tokens_per_s']:.1f} tokens/s, peak {statsbf['peak_gb']:.2f} GB; card={card}")
-    return rows, par
+    return rows, par, stats7f
 
 
 # ---------------------------------------------------------------------------
@@ -3086,6 +3162,462 @@ def parallel_phase(card: str, prep, trainer, device="cuda") -> dict:
                   "vmem_attn_fwd": {"sharded_step": counts_s["vmem_attn_fwd"]}, "vmem_attn_bwd": {"sharded_step": counts_s["vmem_attn_bwd"]},
                   "fused_ce_fwd": {"sharded_step": counts_s["fused_ce_fwd"]}, "fused_ce_bwd": {"sharded_step": counts_s["fused_ce_bwd"]}},
     )
+
+
+# ---------------------------------------------------------------------------
+# the cascade's two training stages at 7B, stage B served (phase 26)
+# ---------------------------------------------------------------------------
+
+# the reference's training setups: stage A QwenA.py:478 (L), :502-537 (bf16
+# base, gradient checkpointing, B 1 x accum 16, lr 3e-4); stage B QwenB.py:152
+# (L), :100-136 (NF4 base), :210-235 (B 1 x accum 32)
+CASCADE_STAGES = {
+    "A": dict(L=1024, accum=16, remat_policy=None, quant=None),
+    "B": dict(L=768, accum=32, remat_policy="dots", quant="nf4"),
+}
+CASCADE_LR = 3e-4
+CASCADE_UPDATES = 2  # whole updates after the cold micro-step's
+CASCADE_SERVE = dict(batch=4, prompt=64, new=64)  # stage B served as int8b
+CASCADE_FUSED = dict(batch=16, prompt=64, new=128)  # the 7B int8b fused tree (phase 8's shapes)
+TOL_REMAT = 1e-6  # remat against no remat, relative, if not bit-equal
+CASCADE_AB_ROUNDS = 4  # stage B's variants of a micro-step, timed in turn this many times each
+
+
+@contextlib.contextmanager
+def plain_product():
+    """A quantized LoRALinear kernel multiplied by autograd's own product,
+    which keeps each dequantized kernel for the backward, in place of the
+    port's product that dequantizes it again there
+    (``models.lora._FrozenKernelMatmul``)."""
+    from prosody_control_french_tts_tpu_torch.models import lora
+
+    class Plain:
+        @staticmethod
+        def apply(x, kernel, *sources):
+            return x @ kernel()
+
+    shipped, lora._FrozenKernelMatmul = lora._FrozenKernelMatmul, Plain
+    try:
+        yield
+    finally:
+        lora._FrozenKernelMatmul = shipped
+
+
+@contextlib.contextmanager
+def host_tables():
+    """``models.quant``'s NF4 tables copied from host memory in every call,
+    as before they were kept on the card (a blocking copy: the host waits
+    for the card each time)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import quant
+
+    kept, quant._on_device = quant._on_device, lambda name, device: torch.from_numpy(getattr(quant, name)).to(device)
+    try:
+        yield
+    finally:
+        quant._on_device = kept
+
+
+@contextlib.contextmanager
+def switched(model, **changes):
+    """``set_cfg(model, **changes)`` for the block, then back."""
+    before = {k: getattr(model.cfg, k) for k in changes}
+    set_cfg(model, **changes)
+    try:
+        yield
+    finally:
+        set_cfg(model, **before)
+
+
+def stacked(*contexts) -> contextlib.ExitStack:
+    """The contexts entered now, left together at the block's end."""
+    stack = contextlib.ExitStack()
+    for c in contexts:
+        stack.enter_context(c)
+    return stack
+
+
+def alternate_ms(run, variants: dict, pairs: int) -> dict:
+    """``run()`` (it must end its device work) under each of ``variants``
+    (name → context manager factory) in turn, ``pairs`` rounds: name → the
+    wall ms of each call."""
+    import torch
+
+    out = {k: [] for k in variants}
+    for _ in range(pairs):
+        for name, ctx in variants.items():
+            with ctx():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                out[name].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def cascade_counts(layers: int, calls: int, remat: bool) -> dict:
+    """The kernel counts of ``calls`` micro-steps with the flash attention:
+    its forward twice a layer a call under remat (the checkpoint's recompute
+    launches it again: it is no matrix product that the "dots" policy
+    keeps), once without; its backward once a layer a call; H once a call
+    each way; kernel G, the dot path and the K/V repeat never."""
+    want = {k: 0 for k in train_counts()}
+    want.update(flash_attn_fwd=layers * calls * (2 if remat else 1), flash_attn_bwd=layers * calls, fused_ce_fwd=calls, fused_ce_bwd=calls)
+    return dict(want, dot_attention=0, repeat_kv=0)
+
+
+def adapter_vector(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters() if p.requires_grad])
+
+
+def micro_steps(step, model, batches, mask, calls: int, accum: int, label: str) -> dict:
+    """``calls`` calls of a train step over ``batches[i % len(batches)]``,
+    every kernel count at 0 just before and read just after; each call's
+    wall ms (to its loss on the host); the adapters must change after every
+    ``accum``-th call and after no other. Returns losses, counts, ms and the
+    adapters after the first update."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention
+
+    reset_train_counts()
+    prev, first_update = adapter_vector(model), None
+    losses, ms = [], []
+    with Capture(llm, "_masked_attention", keep=1) as cap_dot, Capture(flash_attention, "repeat_kv", keep=1) as cap_rep:
+        for i in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batches[i % len(batches)], mask)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            now = adapter_vector(model)
+            moved = not torch.equal(now, prev)
+            if moved != ((i + 1) % accum == 0):
+                raise SystemExit(f"{label}: call {i + 1} {'changed' if moved else 'left'} the adapters at accum {accum}")
+            if moved and first_update is None:
+                first_update = now
+            prev = now
+    return dict(losses=losses, counts=dict(train_counts(), dot_attention=cap_dot.count, repeat_kv=cap_rep.count), ms=ms, first_update=first_update)
+
+
+def remat_gap(a, b) -> float:
+    """max |a - b| over max |b| (0 when bit-equal)."""
+    import torch
+
+    a, b = torch.as_tensor(a, dtype=torch.float64), torch.as_tensor(b, dtype=torch.float64)
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def train_cascade_stage(label: str, model, tx, state, cfg, spec: dict, seed: int, card: str, phase14) -> dict:
+    """Phase 26's run of one stage on a built 7B trainer: one cold
+    micro-step and ``CASCADE_UPDATES`` whole updates at B 1 (micro-batches
+    ``batches[i % accum]``), their checks, one update without remat on the
+    same weights and batches; with a quantized base, the peak memory of a
+    micro-step whose product keeps the dequantized kernels, and micro-steps
+    timed in turn with one thing changed (that product under remat, full
+    recompute for "dots", the NF4 table copied from the host each call);
+    the flash attention and H
+    against their plain versions on one more micro-step's tensors; and a
+    torch.profiler split of one micro-step."""
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import training
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention, fused_ce
+
+    L, accum = spec["L"], spec["accum"]
+    step = training.make_train_step(model, tx, trainable=state.mask, loss_impl="auto")
+    if step.loss_impl != "fused":
+        raise SystemExit(f"{label}: loss_impl='auto' resolved to {step.loss_impl!r}, expected 'fused'")
+    rng = np.random.default_rng(seed)
+    batches = [torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, L)).astype(np.int32)).cuda() for _ in range(accum)]
+    mask = torch.ones((1, L), dtype=torch.float32, device="cuda")
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    start = [p.detach().clone() for p in trainable]
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if not state.mask[k]}
+    frozen_bytes = sum(v.numel() * v.element_size() for v in frozen.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - frozen_bytes  # the trainer itself, weights included
+    weights = sum(v.numel() * v.element_size() for v in model.state_dict().values())
+    torch.cuda.reset_peak_memory_stats()
+    calls = 1 + CASCADE_UPDATES * accum
+    run = micro_steps(step, model, batches, mask, calls, accum, label)
+    peak_gb = (torch.cuda.max_memory_allocated() - frozen_bytes - (base - weights)) / 1e9
+    want = cascade_counts(cfg.layers, calls, remat=True)
+    print(f"{label} main path launches: {json.dumps(run['counts'])} (expected {json.dumps(want)})")
+    if run["counts"] != want:
+        raise SystemExit(f"{label}: launch counts {run['counts']}, expected {want}")
+    losses = run["losses"]
+    # call i takes batch i % accum: calls 1, accum + 1 and 2 accum + 1 read batch 0 before, after one and after two updates
+    if not all(np.isfinite(losses)) or not losses[2 * accum] < losses[accum] < losses[0]:
+        raise SystemExit(f"{label}: losses on batch 0 {losses[0]}, {losses[accum]}, {losses[2 * accum]} are not finite and falling")
+    if any(not torch.equal(v, model.state_dict()[k]) for k, v in frozen.items()):
+        raise SystemExit(f"{label}: a frozen leaf changed")
+    still = sum(int(torch.equal(p, s)) for p, s in zip(trainable, start))
+    if still:
+        raise SystemExit(f"{label}: {still} adapter leaves did not move")
+    ms = run["ms"]
+    micro_ms = float(np.mean(ms[1:]))
+    update_ms = float(np.sum(ms[1 + accum : 1 + 2 * accum]))  # the second update's calls, all warm
+    stats = dict(cold_ms=ms[0], micro_ms=micro_ms, update_ms=update_ms, tokens_per_s=L * accum / update_ms * 1e3, peak_gb=peak_gb,
+                 losses_batch0=[losses[0], losses[accum], losses[2 * accum]], counts=run["counts"])
+    p14 = "not run in this process" if phase14 is None else f"{phase14['peak_gb']:.2f} GB at B 2 ({phase14['warm_ms']:.1f} ms a step, no remat)"
+    print(f"{label} (B 1 x accum {accum}, L {L}, remat policy {spec['remat_policy']}, {'NF4' if spec['quant'] else 'bf16'} base, "
+          f"lr {CASCADE_LR}): {micro_ms:.1f} ms a micro-step, {update_ms:.1f} ms an update, {stats['tokens_per_s']:.1f} trained tokens/s; "
+          f"cold first micro-step {ms[0]:.1f} ms; peak device memory {peak_gb:.2f} GB (phase 14's bf16 7B step at L 1024: {p14}); "
+          f"losses on batch 0 before / after 1 / after 2 updates {[round(x, 5) for x in stats['losses_batch0']]}; card={card}")
+
+    # one update without remat on the same weights and batches, a fresh optimizer
+    with torch.no_grad():
+        for p, s in zip(trainable, start):
+            p.copy_(s)
+    del start
+    set_cfg(model, remat=False)
+    tx2 = training.make_optimizer(trainable, CASCADE_LR, accum=accum)
+    step2 = training.make_train_step(model, tx2, trainable=state.mask, loss_impl="auto")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = micro_steps(step2, model, batches, mask, accum, accum, label + " without remat")
+    plain_peak_gb = (torch.cuda.max_memory_allocated() - frozen_bytes - (base - weights)) / 1e9
+    want = cascade_counts(cfg.layers, accum, remat=False)
+    if plain["counts"] != want:
+        raise SystemExit(f"{label} without remat: launch counts {plain['counts']}, expected {want}")
+    gaps = (remat_gap(plain["losses"], losses[:accum]), remat_gap(plain["first_update"], run["first_update"]))
+    equal = plain["losses"] == losses[:accum] and torch.equal(plain["first_update"], run["first_update"])
+    if not equal and max(gaps) > TOL_REMAT:
+        raise SystemExit(f"{label}: the update without remat differs from the remat update by {gaps} (losses, adapters)")
+    plain_ms = float(np.mean(plain["ms"]))
+    stats.update(plain_micro_ms=plain_ms, plain_peak_gb=plain_peak_gb, remat_bit_equal=equal, remat_gap=gaps)
+    print(f"{label} without remat, one update: losses and adapters {'bit-equal to' if equal else 'within %.1e / %.1e of' % gaps} the remat "
+          f"update's; {plain_ms:.1f} ms a micro-step (remat {micro_ms:.1f}, {micro_ms / plain_ms:.3f}x), peak device memory "
+          f"{plain_peak_gb:.2f} GB (remat {peak_gb:.2f}); card={card}")
+    if spec["quant"]:
+        # what autograd keeps of a quantized base without the recomputing product (no remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_product():
+            kept_loss = float(step2(batches[0], mask))
+        stats["kept_dequant_peak_gb"] = (torch.cuda.max_memory_allocated() - frozen_bytes - (base - weights)) / 1e9
+        if not np.isfinite(kept_loss):
+            raise SystemExit(f"{label}: the micro-step with the plain product gave loss {kept_loss}")
+        print(f"{label} without remat and with the plain product (autograd keeps each dequantized bf16 kernel for the "
+              f"backward): peak device memory {stats['kept_dequant_peak_gb']:.2f} GB against {plain_peak_gb:.2f} GB with the "
+              f"recomputing product; card={card}")
+        # where the wall goes: each variant against the shipped micro-step, in turn
+        run1 = lambda: float(step2(batches[1], mask))  # noqa: E731
+        ab = {"shipped": contextlib.nullcontext,
+              "remat, plain product (two dequantizations a kernel, not three)": plain_product,
+              "remat None (full recompute, no selective-checkpoint dispatch)": lambda: switched(model, remat=True, remat_policy=None),
+              "no remat": lambda: switched(model, remat=False),
+              "no remat, NF4 table copied from the host each call": lambda: stacked(switched(model, remat=False), host_tables())}
+        set_cfg(model, remat=True)
+        ms_ab = alternate_ms(run1, ab, CASCADE_AB_ROUNDS)
+        stats["variants_ms"] = {k: float(np.median(v)) for k, v in ms_ab.items()}
+        print(f"{label} micro-steps timed in turn ({CASCADE_AB_ROUNDS} rounds; median, then each): " + "; ".join(
+            f"{k} {stats['variants_ms'][k]:.1f} ms {[round(x, 1) for x in v]}" for k, v in ms_ab.items()) + f"; card={card}")
+    set_cfg(model, remat=True)
+
+    # the flash attention and H against their plain versions at this stage's shapes: layer 0's
+    # attention and the loss of one more micro-step
+    with GradCapture(flash_attention, "flash_attention_gqa", first=True) as cap_fa, GradCapture(fused_ce, "linear_ce_rows", first=True) as cap_h:
+        float(step2(batches[0], mask))
+    (q, k, v, *_), dout = cap_fa.calls[0]
+    (h, w, tgt), g = cap_h.calls[0]
+    if dout is None or g is None:
+        raise SystemExit(f"{label}: no gradient reached the captured flash attention or H call")
+    q, k, v, h = (t.detach().contiguous() for t in (q, k, v, h))
+    w, tgt, g = w.detach(), tgt.detach().to(torch.int32).contiguous(), g.float().contiguous()
+    fa_err = check_attention_kernel(flash_call, flash_plain, "flash_attention", q, k, v, dout.contiguous(), f"{label} L {L}", FA_LIMITS)
+    h_err = check_kernel_h(h, w, tgt, g, f"{label} bf16", TOL_H_WIDE, TOL_H_GRAD_BF16)
+    check_kernel_h(h.float(), w.float(), tgt, g, f"{label} upcast to float32", TOL_H_WIDE, TOL_H_GRAD_WIDE)
+    stats["max_abs_err"] = {"flash_attn_fwd": fa_err[0], "flash_attn_bwd": fa_err[1], "fused_ce_fwd": h_err[0], "fused_ce_bwd": h_err[1]}
+    del q, k, v, h, w, tgt, g, dout, cap_fa, cap_h
+    print(f"{label} micro-step split: " + json.dumps(profile_train_steps(lambda: step2(batches[0], mask), 1)))
+    return stats
+
+
+def host_nf4_check(host_kernels: dict) -> dict:
+    """The numpy quantizer on the host over one layer's seven kernels
+    (float32 copies): name → (packed, scale, seconds)."""
+    from prosody_control_french_tts_tpu_torch.models import quant
+
+    out = {}
+    for name, w in host_kernels.items():
+        t0 = time.perf_counter()
+        packed, scale = quant.quantize_kernel_nf4(w)
+        out[name] = (packed, scale, time.perf_counter() - t0)
+    return out
+
+
+def cascade_phase(args, card: str, phase14=None) -> dict:
+    """Phase 26: the paper's two cascade stages trained at Qwen2.5-7B's full
+    width and depth on the card as the reference sets them up, stage B
+    served as int8b, and the 7B fused serving tree quantized on the card.
+    Stage A: a bf16 base, separate q/k/v, remat with nothing saved, B 1 x
+    accum 16, L 1024. Stage B: the same base quantized to NF4 on the card
+    (``quantize_params``, checked byte-equal to the host's numpy quantizer
+    on one layer's seven kernels, run after stage B's timed runs),
+    fresh adapters, remat saving the matrix products, B 1 x accum 32, L 768.
+    Each model is freed before the next is built. Returns the kernels'
+    launch counts by run, and the stages' figures. ``phase14`` holds phase
+    14's 7B step (peak GB, ms) for the comparison, when it ran."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import llm, quant, training
+    from prosody_control_french_tts_tpu_torch.ops import decode_attn
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    free()
+    launches = {}
+    base7 = dataclasses.replace(llm.LLMConfig.qwen25_7b(), attn_impl="flash", fused_qkv=False, remat=True, lora_rank=8, lora_alpha=16.0)
+
+    # -- stage A: bf16 base, remat (nothing saved), B 1 x accum 16, L 1024 ----
+    spec = CASCADE_STAGES["A"]
+    cfg_a = dataclasses.replace(base7, max_len=spec["L"], remat_policy=spec["remat_policy"])
+    t0 = time.perf_counter()
+    model, tx, state = training.init_train(cfg_a, seed=args.seed + 26, lr=CASCADE_LR, accum=spec["accum"], frozen_dtype=torch.bfloat16,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    print(f"cascade stage A: qwen25_7b (dim {cfg_a.dim}, {cfg_a.layers} layers), attn flash, fused_qkv False, rank {cfg_a.lora_rank}, "
+          f"alpha {cfg_a.lora_alpha}; built in {time.perf_counter() - t0:.1f} s; cuts: none")
+    stage_a = train_cascade_stage("cascade stage A", model, tx, state, cfg_a, spec, args.seed + 26, card, phase14)
+    launches["stage_a"] = stage_a["counts"]
+
+    # -- the base quantized to NF4 on the card -------------------------------
+    base_tree = {k: v for k, v in model.state_dict().items() if not state.mask[k]}
+    bf16_bytes = quant.quantized_bytes(base_tree)
+    layer0 = {n: base_tree[f"layers.0.{n}.kernel"] for n in ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.gate", "mlp.up", "mlp.down")}
+    host = {n: w.float().cpu().numpy() for n, w in layer0.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qtree = quant.quantize_params(base_tree, "nf4")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    nf4_bytes = quant.quantized_bytes(qtree)
+    card_layer0 = {n: (qtree[f"layers.0.{n}.kernel_q"].cpu().numpy(), qtree[f"layers.0.{n}.kernel_scale"].cpu().numpy()) for n in layer0}
+    del model, tx, state, base_tree, layer0
+    free()
+
+    # -- stage B: NF4 base, remat ("dots"), B 1 x accum 32, L 768 -------------
+    spec = CASCADE_STAGES["B"]
+    cfg_b = dataclasses.replace(base7, max_len=spec["L"], remat_policy=spec["remat_policy"], quant="nf4")
+    t0 = time.perf_counter()
+    model, tx, state = training.init_train(cfg_b, seed=args.seed + 27, lr=CASCADE_LR, accum=spec["accum"], device="cuda")
+    missing, unexpected = model.load_state_dict(qtree, strict=False)
+    if unexpected or set(missing) != {k for k, m in state.mask.items() if m}:
+        raise SystemExit(f"cascade stage B: the NF4 tree does not load (unexpected {unexpected[:3]}, missing {sorted(missing)[:3]})")
+    del qtree
+    free()
+    torch.cuda.synchronize()
+    print(f"cascade stage B: the same geometry, NF4 base loaded into LLMConfig(quant='nf4') with fresh adapters in "
+          f"{time.perf_counter() - t0:.1f} s; {nf4_bytes / 1e9:.2f} GB NF4 tree (bf16 tree {bf16_bytes / 1e9:.2f} GB); cuts: none")
+    stage_b = train_cascade_stage("cascade stage B", model, tx, state, cfg_b, spec, args.seed + 27, card, phase14)
+    launches["stage_b"] = stage_b["counts"]
+    host_out = host_nf4_check(host)  # numpy on the host, alone
+    del host
+    for n, (packed, scale) in card_layer0.items():
+        hp, hs, _ = host_out[n]
+        if not (np.array_equal(packed, hp) and np.array_equal(scale, hs)):
+            raise SystemExit(f"cascade: layer 0's {n} quantized on the card differs from the host's numpy quantizer")
+    host_mlp_s = host_out["mlp.gate"][2]
+    print(f"cascade NF4: the whole 7B tree quantized on the card in {quant_s:.2f} s (quantize_params, torch path); the host's numpy "
+          f"quantizer {host_mlp_s:.2f} s for one MLP kernel [{cfg_b.dim}, {cfg_b.ffn}] (alone, after stage B), "
+          f"{sum(v[2] for v in host_out.values()):.2f} s for layer 0's seven; layer 0's seven kernels byte-equal card vs host; "
+          f"quantized_bytes {nf4_bytes / 1e9:.3f} GB against the bf16 tree's {bf16_bytes / 1e9:.3f} GB; card={card}")
+
+    # -- stage B served: recoded to int8b on the card, greedy_generate ---------
+    t0 = time.perf_counter()
+    rec = quant.recode_params_nf4_serving(model.state_dict())
+    torch.cuda.synchronize()
+    recode_s = time.perf_counter() - t0
+    del model, tx, state
+    free()
+    scfg = dataclasses.replace(cfg_b, quant="int8b", remat=False)
+    smodel = llm.DecoderLM(scfg, device="cuda", seed=args.seed)
+    smodel.load_state_dict(rec)
+    del rec
+    free()
+    S = CASCADE_SERVE
+    prompt = np.random.default_rng(args.seed + 28).integers(1, scfg.vocab_size, size=(S["batch"], S["prompt"])).astype(np.int32)
+    times = []
+    for _ in range(2):  # cold, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = llm.greedy_generate(smodel, prompt, S["new"], device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if toks.shape != (S["batch"], S["prompt"] + S["new"]) or not torch.equal(toks[:, : S["prompt"]].cpu(), torch.from_numpy(prompt)) or (
+            int(toks.min()) < 0 or int(toks.max()) >= scfg.vocab_size):
+        raise SystemExit("cascade stage B served: bad tokens")
+    # in float32: the int8b model against the same tree dequantized
+    set_cfg(smodel, dtype=torch.float32)
+    got = llm.greedy_generate(smodel, prompt, S["new"], device="cuda")
+    fmodel = llm.DecoderLM(dataclasses.replace(scfg, quant=None, dtype=torch.float32), device="cuda", seed=args.seed)
+    sstate = smodel.state_dict()
+    with torch.no_grad():
+        for k, t in fmodel.state_dict().items():
+            stem = k[: -len("kernel")]
+            if k.endswith(".kernel") and stem + "kernel_q" in sstate:  # a projection (the head is not quantized)
+                pair = {stem + "kernel_q": sstate[stem + "kernel_q"], stem + "kernel_scale": sstate[stem + "kernel_scale"]}
+                t.copy_(quant.dequantize_params(pair)[k])
+            else:
+                t.copy_(sstate[k])
+    del sstate, smodel
+    free()
+    ref = llm.greedy_generate(fmodel, prompt, S["new"], device="cuda")
+    near = explain_mismatches(None, None, got, ref, last_logits=lambda prefix: fmodel(prefix)[0, -1])
+    print(f"cascade stage B served as int8b (recoded on the card in {recode_s:.2f} s; greedy_generate, {S['batch']} prompts of "
+          f"{S['prompt']} tokens, {S['new']} new, bf16): warm {times[1]:.3f} s, {S['batch'] * S['new'] / times[1]:.1f} tokens/s, cold "
+          f"{times[0]:.3f} s; in float32 the int8b tokens equal the dequantized tree's in {S['batch'] - near} of {S['batch']} rows "
+          f"({near} part at a logit near-tie); card={card}")
+    del fmodel
+    free()
+
+    # -- the 7B fused serving tree quantized to int8b on the card -------------
+    cfg7 = llm.LLMConfig.qwen25_7b()
+    F = CASCADE_FUSED
+    fp, _ = random_fused_tree(cfg7, args.seed)  # phase 8's tree
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fq = llm.quantize_fused_decode_params(fp, mode="int8b")
+    torch.cuda.synchronize()
+    fq_s = time.perf_counter() - t0
+    bf16_fused = quant.quantized_bytes(fp)
+    del fp
+    free()
+    prompt = np.random.default_rng(args.seed).integers(1, cfg7.vocab_size, size=(F["batch"], F["prompt"])).astype(np.int32)
+    decode_attn.launches = 0
+    toks, cold_s = serve(fq, cfg7, prompt, F["new"])
+    launches["int8b_7b"] = decode_attn.launches
+    want = cfg7.layers * (F["new"] - 1)
+    if launches["int8b_7b"] != want:
+        raise SystemExit(f"7B int8b: kernel F launched {launches['int8b_7b']} times, expected {want}")
+    check_served_tokens(fq, cfg7, prompt, toks, F["new"])
+    _, warm_s = serve(fq, cfg7, prompt, F["new"])
+    fcfg = dataclasses.replace(cfg7, dtype=torch.float32)
+    trees = int8b_trees_in_float32(fq)
+    got, _ = serve(trees[0], fcfg, prompt, F["new"])
+    ref, _ = serve(trees[1], fcfg, prompt, F["new"])
+    near = explain_mismatches(trees[1], fcfg, got, ref)
+    print(f"llm 7B int8b (fused tree quantized on the card in {fq_s:.2f} s, {quant.quantized_bytes(fq) / 1e9:.2f} GB against bf16 "
+          f"{bf16_fused / 1e9:.2f} GB; B {F['batch']}, P {F['prompt']}, new {F['new']}): kernel F {launches['int8b_7b']} launches "
+          f"(expected {want}); warm {warm_s:.3f} s, {F['batch'] * F['new'] / warm_s:.1f} tokens/s, cold {cold_s:.3f} s; in float32 the int8b "
+          f"tokens equal the dequantized tree's in {F['batch'] - near} of {F['batch']} rows ({near} part at a logit near-tie); card={card}")
+    del fq, trees
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 26 took {seconds:.1f} s; card={card}")
+    return dict(launches=launches, stage_a=stage_a, stage_b=stage_b, quant_s=quant_s, host_mlp_s=host_mlp_s, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -5241,12 +5773,21 @@ def main() -> int:
     rows_out.extend(cde_rows)
     rows_out.append(mv["mask_ema"])
     rows_out.append(llm_phases(args, card))
-    train_rows, par = train_phases(args, card, prep24)
+    train_rows, par, flash7 = train_phases(args, card, prep24)
     del prep24
     rows_out.extend(train_rows)
     for row in rows_out:
         if row["name"] in ("pitch_candidates", "viterbi"):
             row["parallel_launches"] = par["launches"][row["name"]]
+
+    # -- 26. the cascade's two training stages at 7B, stage B served ----------
+    cascade = cascade_phase(args, card, flash7)
+    for row in rows_out:
+        if row["name"] in ("flash_attn_fwd", "flash_attn_bwd", "fused_ce_fwd", "fused_ce_bwd"):
+            row["cascade_launches"] = {k: cascade["launches"][k][row["name"]] for k in ("stage_a", "stage_b")}
+            row["cascade_max_abs_err"] = {k: cascade[k]["max_abs_err"][row["name"]] for k in ("stage_a", "stage_b")}
+        elif row["name"] == "decode_attn":
+            row["cascade_launches"] = {"int8b_7b": cascade["launches"]["int8b_7b"]}
 
     # -- 16-19. the acoustic aligners and the pipeline with them -------------
     whisper_align_phase(card)

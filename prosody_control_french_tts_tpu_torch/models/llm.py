@@ -604,17 +604,18 @@ def quantize_fused_decode_params(fp: dict, block: int = 64, mode: str = "int8b")
     lm_head) becomes ``{"codes": int8 [K, N], "scale": f32 [K/block, N]}``
     (``mode="int8b"``, blockwise — ``quant.matmul_int8_block``) or
     ``{"codes": int8 [K, N], "scale": f32 [N]}`` (``mode="int8"``, per output
-    channel); embed, biases and norm scales stay float. Quantization runs on
-    the host in numpy; the codes return to the tree's device."""
+    channel); embed, biases and norm scales stay float. Each weight is
+    quantized on its device (``models.quant``'s torch path, byte-equal to the
+    JAX package's host quantizers)."""
     from .quant import quantize_kernel_int8, quantize_kernel_int8_block
 
     if mode not in ("int8", "int8b"):
         raise ValueError(f"unknown mode {mode!r}")
 
     def q2(w):
-        host = w.detach().float().cpu().numpy()
-        q, s = quantize_kernel_int8(host) if mode == "int8" else quantize_kernel_int8_block(host, block)
-        return {"codes": torch.from_numpy(q).to(w.device), "scale": torch.from_numpy(s).to(w.device)}
+        w = w.detach()
+        q, s = quantize_kernel_int8(w) if mode == "int8" else quantize_kernel_int8_block(w, block)
+        return {"codes": q, "scale": s}
 
     layers = [{**lw, "wqkv": q2(lw["wqkv"]), "wo": q2(lw["wo"]), "wgu": q2(lw["wgu"]), "wdown": q2(lw["wdown"])} for lw in fp["layers"]]
     return {**fp, "layers": layers, "lm_head": q2(fp["lm_head"])}

@@ -7,6 +7,11 @@ stored ``[in, out]`` (so a checkpoint of the JAX package copies across
 without a transpose) as float32, as bfloat16 once a training run has
 frozen and downcast it (``models.training.init_train(frozen_dtype=...)``), or
 weight-only quantized (``models.quant``); adapters are always float32.
+
+A quantized base kernel is dequantized in every forward. Autograd would keep
+that dequantized copy for the backward of ``x @ W`` (the whole 7B base in
+bfloat16, about 13 GB a step); :class:`_FrozenKernelMatmul` keeps the codes
+instead and dequantizes again in the backward.
 """
 
 from __future__ import annotations
@@ -33,12 +38,32 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator | Non
     return t
 
 
+class _FrozenKernelMatmul(torch.autograd.Function):
+    """``x @ kernel()`` for a frozen kernel that ``kernel`` makes from
+    ``sources`` (the codes and scales): the backward makes it again rather
+    than keeping the forward's. Only ``x`` gets a gradient, by the product
+    autograd's own ``mm`` backward computes (the same call, the same bits)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, *sources):
+        ctx.kernel = kernel
+        ctx.save_for_backward(*sources)
+        return x @ kernel()
+
+    @staticmethod
+    def backward(ctx, gy):
+        w = ctx.kernel()
+        gx = gy.reshape(-1, gy.shape[-1]).mm(w.t()).reshape(*gy.shape[:-1], w.shape[0])
+        return (gx, None, *([None] * len(ctx.saved_tensors)))
+
+
 class LoRALinear(nn.Module):
     """``quant`` selects weight-only storage for the BASE kernel: ``None``
     (float32 ``kernel``), ``"int8"`` (per channel), ``"int8b"`` (blockwise,
     the NF4 serving layout) or ``"nf4"`` (4-bit packed). Quantized kernels
-    are buffers ``kernel_q`` + ``kernel_scale`` and are dequantized to
-    ``dtype`` in :meth:`forward`; ``int8b`` runs
+    are buffers ``kernel_q`` + ``kernel_scale`` (never a gradient) and are
+    dequantized to ``dtype`` in :meth:`forward` and again in the backward
+    (module docstring); ``int8b`` runs
     ``quant.matmul_int8_block`` and never materialises the kernel.
 
     On a tensor-parallel model (``parallel.sharding.shard_params``) the base
@@ -114,14 +139,19 @@ class LoRALinear(nn.Module):
             lora_b = None if lora_b is None else lora_b[:, cols]
         return bias, self.lora_a, lora_b
 
+    def _dequantized(self) -> torch.Tensor:
+        dequant = dequant_int8 if self.quant == "int8" else dequant_nf4
+        return dequant(self.kernel_q, self.kernel_scale, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.quant == "int8b":
             y = matmul_int8_block(x, self.kernel_q, self.kernel_scale, dt)
-        elif self.quant == "int8":
-            y = x @ dequant_int8(self.kernel_q, self.kernel_scale, dt)
-        elif self.quant == "nf4":
-            y = x @ dequant_nf4(self.kernel_q, self.kernel_scale, dt)
+        elif self.quant in ("int8", "nf4"):
+            if x.requires_grad and torch.is_grad_enabled():
+                y = _FrozenKernelMatmul.apply(x, self._dequantized, self.kernel_q, self.kernel_scale)
+            else:
+                y = x @ self._dequantized()
         else:
             y = x @ self.kernel.to(dt)
         if self.split == "row":

@@ -49,10 +49,14 @@ class TrainState:
 
 
 class AccumAdamW:
-    """adamw (b1 0.9, b2 0.999, eps 1e-8) with gradient accumulation: the
-    mean of ``accum`` gradients, parameters unchanged in between, one update
-    every ``accum`` calls of :meth:`step`. Gradients accumulate in the
-    parameters' ``.grad`` between updates."""
+    """adamw (b1 0.9, b2 0.999, eps 1e-8) with gradient accumulation, as
+    ``optax.MultiSteps`` takes it: parameters unchanged in between, one
+    update every ``accum`` calls of :meth:`step` on the mean of the
+    ``accum`` gradients. The mean is kept in float32 buffers beside the
+    trainable leaves and updated as optax updates it, ``acc + (g - acc) / n``
+    after the n-th gradient (a sum divided by ``accum`` at the end rounds
+    otherwise); each micro-step's gradient lands in a cleared ``.grad``.
+    With ``accum`` 1 the gradient goes to the update as it is."""
 
     def __init__(self, params, lr: float, weight_decay: float, accum: int):
         if accum < 1:
@@ -60,21 +64,41 @@ class AccumAdamW:
         self.params = list(params)
         self.accum = accum
         self.mini_step = 0
+        self.acc = None  # the running means, made at the first accumulation
         self.inner = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
-    def applies_next(self) -> bool:
-        """Whether the next :meth:`step` updates the parameters."""
-        return self.mini_step + 1 >= self.accum
+    def _accumulate(self) -> None:
+        """Fold each leaf's ``.grad`` into its running mean and clear it (no
+        gradient counts as a zero one): three multi-tensor passes."""
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(acc) for p, acc in zip(self.params, self.acc)]
+        # a tensor divisor: CUDA divides exactly by it (a host scalar becomes a reciprocal's product)
+        n = torch.full((), float(self.mini_step), dtype=torch.float32, device=self.acc[0].device)
+        with torch.no_grad():
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, n)
+            torch._foreach_add_(self.acc, diff)
+        for p in self.params:
+            p.grad = None
 
-    def step(self) -> None:
+    def step(self, before_update=None) -> None:
+        """One micro-step. On the update call ``before_update()`` (if given)
+        runs first, with the gradients to apply in the leaves' ``.grad``."""
         self.mini_step += 1
-        if self.mini_step < self.accum:
-            return
         if self.accum > 1:
-            with torch.no_grad():
-                torch._foreach_div_([p.grad for p in self.params if p.grad is not None], float(self.accum))
+            self._accumulate()
+            if self.mini_step < self.accum:
+                return
+            for p, acc in zip(self.params, self.acc):
+                p.grad = acc
+        if before_update is not None:
+            before_update()
         self.inner.step()
         self.inner.zero_grad(set_to_none=True)
+        if self.acc is not None:
+            for acc in self.acc:
+                acc.zero_()
         self.mini_step = 0
 
 
@@ -201,10 +225,8 @@ def make_train_step(
         else:
             loss = causal_lm_loss(model(ids), ids, loss_mask, shards)
         loss.backward()
-        if shards is not None and tx.applies_next():
-            # once per update: the accumulated local gradients made whole
-            shards.reduce_grads(named)
-        tx.step()
+        # on a sharded model, once per update: the accumulated local gradients made whole
+        tx.step(None if shards is None else lambda: shards.reduce_grads(named))
         return loss.detach()
 
     step_fn.loss_impl = "fused" if use_fused else "dense"

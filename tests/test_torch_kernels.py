@@ -13,11 +13,33 @@ import numpy as np
 import pytest
 import torch
 
+from prosody_control_french_tts_tpu_torch.models import quant
 from prosody_control_french_tts_tpu_torch.ops import (
     candidates, chunk_cumsum, ctc_loss, ctc_viterbi, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
 )
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
+
+
+def quant_edge_kernel() -> np.ndarray:
+    """A float32 [128, 37] kernel (two NF4 blocks a column, an odd number of
+    columns) with the quantizers' edge values: blocks of the NF4 table's
+    midpoints at scale 1 and at scale 0.37, all-zero blocks, ±float32 max
+    with zeros, -0.0, and seeded values elsewhere."""
+    w = np.random.default_rng(9).normal(0.0, 0.1, (128, 37)).astype(np.float32)
+    t = quant.NF4_TABLE
+    mid = ((t[:-1] + t[1:]) / 2).astype(np.float32)
+    w[:64, 0] = 0.0
+    w[64, 0], w[65:80, 0] = 1.0, mid
+    w[:, 1] = 0.0
+    w[64:, 2] = np.float32(0.37)
+    w[65:80, 2] = mid * np.float32(0.37)
+    big = np.finfo(np.float32).max
+    w[:, 3] = 0.0
+    w[0, 3], w[1, 3], w[70, 3] = big, -big, -big
+    w[:, 4] = -0.0
+    w[:, 5] = np.tile(np.concatenate([mid, -mid]), 5)[:128]
+    return w
 
 
 @pytest.fixture
@@ -1376,3 +1398,30 @@ def test_ctc_loss_kernel_refuses_past_its_states(cuda):
     with pytest.raises(ValueError, match="outside"):
         ctc_loss.ctc_loss(lp[:, :10].contiguous().to(cuda), labels[:5] + 20, 4200, 5)
     assert ctc_loss.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["edges", "seeded"])
+def test_quantizers_on_the_card_equal_numpy(cuda, inputs):
+    """The quantizers' torch path on the card (``models.quant``): codes and
+    scales byte-equal to the numpy path's on the host, on the edge kernel
+    and on a seeded [3,584, 1,184] kernel (a 7B projection's rows) in column
+    chunks of 64 columns; the recode of the NF4 codes likewise."""
+    w = quant_edge_kernel() if inputs == "edges" else np.random.default_rng(3).normal(0.0, 0.02, (3584, 1184)).astype(np.float32)
+    chunk = quant.QUANT_CHUNK_BYTES
+    try:
+        if inputs == "seeded":
+            quant.QUANT_CHUNK_BYTES = w.shape[0] * 16 * 4 * 64
+        for name in ("quantize_kernel_int8", "quantize_kernel_int8_block", "quantize_kernel_nf4"):
+            want = getattr(quant, name)(w)
+            got = getattr(quant, name)(torch.from_numpy(w).to(cuda))
+            for g, h in zip(got, want):
+                assert g.is_cuda and g.cpu().numpy().dtype == h.dtype
+                np.testing.assert_array_equal(g.cpu().numpy(), h, err_msg=name)
+        packed, scale = quant.quantize_kernel_nf4(w)
+        want = quant.recode_nf4_to_int8_block(packed, scale)
+        got = quant.recode_nf4_to_int8_block(torch.from_numpy(packed).to(cuda), torch.from_numpy(scale).to(cuda))
+        for g, h in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), h)
+    finally:
+        quant.QUANT_CHUNK_BYTES = chunk

@@ -24,6 +24,7 @@ from prosody_control_french_tts_tpu_torch import convert
 from prosody_control_french_tts_tpu_torch.models import cascade as tcascade, llm as tllm, llm_eval as teval, quant as tquant
 from prosody_control_french_tts_tpu_torch.models.lora import LoRALinear, lora_param_mask, merge_lora
 from prosody_control_french_tts_tpu_torch.models.tokenizer import WordPieceTokenizer as TTokenizer
+from tests.test_torch_kernels import quant_edge_kernel
 
 SENTENCES = [
     "Le portrait du compositeur est accroché au mur du salon.",
@@ -61,13 +62,70 @@ def kernel():
     return np.random.default_rng(0).normal(0.0, 0.1, (128, 48)).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["quantize_kernel_int8", "quantize_kernel_int8_block", "quantize_kernel_nf4"])
-def test_quantizers_equal_jax_bit_for_bit(kernel, name):
-    want = getattr(jquant, name)(kernel)
-    got = getattr(tquant, name)(kernel)
+QUANTIZERS = ["quantize_kernel_int8", "quantize_kernel_int8_block", "quantize_kernel_nf4", "recode_nf4_to_int8_block"]
+
+
+def quantizer_input(name, inputs, kernel):
+    """The arguments of ``name`` for JAX's function: the fixture's kernel, or
+    tests/test_torch_kernels.py's edge kernel (odd out, NF4 midpoints, zero
+    blocks, ±max); the recoder takes JAX's NF4 quantization of it."""
+    w = kernel if inputs == "seeded" else quant_edge_kernel()
+    return jquant.quantize_kernel_nf4(w) if name == "recode_nf4_to_int8_block" else (w,)
+
+
+# the numpy cases keep their ids; the torch cases run the tensor path on CPU
+# tensors, once with column chunks of a few columns
+QUANT_CASES = [pytest.param(n, "numpy", "seeded", id=n) for n in QUANTIZERS[:3]] + [
+    pytest.param(n, kind, inputs, id=f"{n}-{kind}-{inputs}")
+    for n in QUANTIZERS
+    for kind, inputs in (("numpy", "edges"), ("torch", "seeded"), ("torch", "edges"), ("torch-chunked", "edges"))
+    if (n, kind) != ("recode_nf4_to_int8_block", "numpy") or inputs == "edges"
+]
+
+
+@pytest.mark.parametrize("name,kind,inputs", QUANT_CASES)
+def test_quantizers_equal_jax_bit_for_bit(kernel, name, kind, inputs, monkeypatch):
+    """Codes and scales byte-equal to the JAX package's, from numpy arrays
+    (the host path) and from torch tensors (the path a card takes: the
+    division by a tensor, the first of equal distances, rint half to even)."""
+    args = quantizer_input(name, inputs, kernel)
+    want = getattr(jquant, name)(*args)
+    if kind == "numpy":
+        got = getattr(tquant, name)(*args)
+    else:
+        if kind == "torch-chunked":
+            monkeypatch.setattr(tquant, "QUANT_CHUNK_BYTES", 1 << 12)  # a few columns a chunk, a short last one
+        got = getattr(tquant, name)(*map(torch.from_numpy, args))
+        assert all(isinstance(g, torch.Tensor) for g in got)
+        got = [g.numpy() for g in got]
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_params_nf4_and_recode_equal_jax(dtype):
+    """``quantize_params(..., "nf4")`` and ``recode_params_nf4_serving`` over a
+    whole tree of CPU tensors (the torch path), byte-equal to the JAX
+    package's on the JAX initialiser's tree: float32, and the same tree
+    rounded to bfloat16 (a frozen base as ``init_train(frozen_dtype=...)``
+    leaves it) against JAX on the rounded values in float32."""
+    cfg = jllm.LLMConfig(vocab_size=512, dim=128, layers=2, heads=4, kv_heads=2, ffn=192, max_len=64, dtype=jnp.float32)
+    jparams = jllm.DecoderLM(cfg).init(jax.random.PRNGKey(2), jnp.zeros((1, 8), jnp.int32))
+    if dtype == torch.bfloat16:
+        jparams = jax.tree.map(lambda x: x.astype(jnp.bfloat16).astype(jnp.float32), jparams)
+    tcfg = tllm.LLMConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}, dtype=torch.float32)
+    tree = {k: v.to(dtype) for k, v in convert.llm_params_from_jax(to_numpy(jparams), tcfg).items()}
+    jq = jquant.quantize_params(jparams, "nf4")
+    for got_tree, want_tree, quant in (
+        (tquant.quantize_params(tree, "nf4"), jq, "nf4"),
+        (tquant.recode_params_nf4_serving(tquant.quantize_params(tree, "nf4")), jquant.recode_params_nf4_serving(jq), "int8b"),
+    ):
+        want = convert.llm_params_from_jax(to_numpy(want_tree), dataclasses.replace(tcfg, quant=quant))
+        assert sorted(got_tree) == sorted(want)
+        for name, w in want.items():
+            g = got_tree[name].to(w.dtype) if name.rsplit(".", 1)[-1] not in ("kernel_q", "kernel_scale") else got_tree[name]
+            assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
 def test_nf4_tables_equal():
@@ -83,6 +141,18 @@ def test_dequantizers_match_jax(kernel, mode):
     want = np.asarray(getattr(jquant, f"dequant_{mode}")(jnp.asarray(q), jnp.asarray(s), jnp.float32))
     got = getattr(tquant, f"dequant_{mode}")(torch.from_numpy(q), torch.from_numpy(s), torch.float32).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_nf4_dequant_copies_its_table_to_a_device_once(kernel, monkeypatch):
+    """``dequant_nf4`` runs in every quantized forward and backward: after
+    its first call on a device it takes the NF4 table from there, with no
+    copy from host memory (which waits for the card on CUDA)."""
+    packed, scale = tquant.quantize_kernel_nf4(torch.from_numpy(kernel))
+    first = tquant.dequant_nf4(packed, scale, torch.float32)
+    copies, from_numpy = [], torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy", lambda a: copies.append(a.shape) or from_numpy(a))
+    again = tquant.dequant_nf4(packed, scale, torch.float32)
+    assert copies == [] and torch.equal(again, first)
 
 
 def test_recode_nf4_to_int8_block_equals_jax(kernel):
