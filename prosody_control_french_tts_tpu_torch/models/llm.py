@@ -36,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from ..core import profiling
 from ..ops import decode_attn, flash_attention, fused_ce, vmem_attn
 from ..ops.kernels import dsp_precision, resolve_device
 from .lora import LoRALinear, lecun_normal_
@@ -326,6 +327,19 @@ def _remat_context(policy: str | None):
     return _ckpt.noop_context_fn
 
 
+def _recomputing(layer, index: int):
+    """``layer`` as the checkpointed function, its run inside a backward (the
+    remat recompute, under either policy) the span ``llm.layer.recompute``."""
+
+    def run(*args):
+        if torch._C._current_graph_task_id() == -1:
+            return layer(*args)
+        with profiling.span("llm.layer.recompute", index):
+            return layer(*args)
+
+    return run
+
+
 class DecoderLM(nn.Module):
     """The training-layout model. Parameters are made on ``device`` from
     ``seed`` (truncated-normal kernels of variance 1/fan_in, N(0, 1/r)
@@ -397,15 +411,20 @@ class DecoderLM(nn.Module):
             mask = torch.arange(kl, device=dev)[None, None, :] <= positions[:, :, None]
         new_caches = []
         remat = c.remat and kv_caches is None and torch.is_grad_enabled()
+        backward = profiling.backward_spans("llm.layer.backward")
         for i, layer in enumerate(self.layers):
             cache = None
             if kv_caches is not None:
                 cache = (kv_caches[i][0], kv_caches[i][1], cache_pos)
-            if remat:
-                x, nc = _ckpt.checkpoint(layer, x, positions, mask, None, use_reentrant=False, context_fn=_remat_context(c.remat_policy))
-            else:
-                x, nc = layer(x, positions, mask, cache)
+            x = backward(x, i)
+            with profiling.span("llm.layer.forward", i):
+                if remat:
+                    fn = _recomputing(layer, i) if profiling.spans_enabled() else layer
+                    x, nc = _ckpt.checkpoint(fn, x, positions, mask, None, use_reentrant=False, context_fn=_remat_context(c.remat_policy))
+                else:
+                    x, nc = layer(x, positions, mask, cache)
             new_caches.append(nc)
+        x = backward(x)
         x = self.ln_f(x)
         if return_hidden:
             # fused-CE training path: the caller feeds the final hidden state

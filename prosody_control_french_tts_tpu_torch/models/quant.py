@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.profiling import span
+
 # The QLoRA NF4 codebook: 16 quantiles of N(0,1) normalised to [-1, 1]
 # (public constants from the QLoRA paper / bitsandbytes).
 NF4_TABLE = np.array(
@@ -57,6 +59,12 @@ NF4_TABLE = np.array(
 )
 
 NF4_BLOCK = 64  # bitsandbytes' default blocksize
+
+# every kernel dequantized (dequant_int8, dequant_nf4): calls, and the least
+# bytes each moves (the codes and float32 scales read once, the result
+# written once at its dtype's width). Always counted, as the ops' launches.
+dequant_calls = 0
+dequant_bytes = 0
 
 # LoRALinear projection names inside DecoderLM — the quantized set
 # (embed/lm_head stay in compute dtype, like the reference's skip_modules)
@@ -127,8 +135,16 @@ def quantize_kernel_int8(w):
     return q, scale.astype(np.float32)
 
 
+def _count_dequant(codes: torch.Tensor, scale: torch.Tensor, weights: int, dtype: torch.dtype) -> None:
+    global dequant_calls, dequant_bytes
+    dequant_calls += 1
+    dequant_bytes += codes.numel() * codes.element_size() + scale.numel() * scale.element_size() + weights * dtype.itemsize
+
+
 def dequant_int8(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return (q.float() * scale[None, :].float()).to(dtype)
+    _count_dequant(q, scale, q.numel(), dtype)
+    with span("quant.dequant"):
+        return (q.float() * scale[None, :].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -256,10 +272,12 @@ def dequant_nf4(packed: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype, b
     writes them interleaved, rows 2i and 2i+1, into the [in, out] result."""
     half, out_f = packed.shape
     in_f = half * 2
-    pairs = _on_device("NF4_PAIRS", packed.device)[:, packed.long()]  # [2, in/2, out]
-    w = torch.empty((in_f // block, block // 2, 2, out_f), dtype=torch.float32, device=packed.device)
-    torch.mul(pairs.permute(1, 0, 2).reshape(in_f // block, block // 2, 2, out_f), scale.float()[:, None, None, :], out=w)
-    return w.reshape(in_f, out_f).to(dtype)
+    _count_dequant(packed, scale, in_f * out_f, dtype)
+    with span("quant.dequant"):
+        pairs = _on_device("NF4_PAIRS", packed.device)[:, packed.long()]  # [2, in/2, out]
+        w = torch.empty((in_f // block, block // 2, 2, out_f), dtype=torch.float32, device=packed.device)
+        torch.mul(pairs.permute(1, 0, 2).reshape(in_f // block, block // 2, 2, out_f), scale.float()[:, None, None, :], out=w)
+        return w.reshape(in_f, out_f).to(dtype)
 
 
 # NF4 levels on the int8 grid (|round(t*127) - t*127| ≤ 0.5 → value error

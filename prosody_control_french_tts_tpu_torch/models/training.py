@@ -30,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.profiling import span
 from ..ops.fused_ce import linear_ce_supported
 from ..ops.kernels import dsp_precision, resolve_device
 from ..parallel.sharding import llm_param_spec, shard_params
@@ -83,23 +84,25 @@ class AccumAdamW:
             p.grad = None
 
     def step(self, before_update=None) -> None:
-        """One micro-step. On the update call ``before_update()`` (if given)
-        runs first, with the gradients to apply in the leaves' ``.grad``."""
-        self.mini_step += 1
-        if self.accum > 1:
-            self._accumulate()
-            if self.mini_step < self.accum:
-                return
-            for p, acc in zip(self.params, self.acc):
-                p.grad = acc
-        if before_update is not None:
-            before_update()
-        self.inner.step()
-        self.inner.zero_grad(set_to_none=True)
-        if self.acc is not None:
-            for acc in self.acc:
-                acc.zero_()
-        self.mini_step = 0
+        """One micro-step (the span ``train.optimizer``). On the update call
+        ``before_update()`` (if given) runs first, with the gradients to
+        apply in the leaves' ``.grad``."""
+        with span("train.optimizer"):
+            self.mini_step += 1
+            if self.accum > 1:
+                self._accumulate()
+                if self.mini_step < self.accum:
+                    return
+                for p, acc in zip(self.params, self.acc):
+                    p.grad = acc
+            if before_update is not None:
+                before_update()
+            self.inner.step()
+            self.inner.zero_grad(set_to_none=True)
+            if self.acc is not None:
+                for acc in self.acc:
+                    acc.zero_()
+            self.mini_step = 0
 
 
 def make_optimizer(params, lr: float = 3e-4, weight_decay: float = 0.0, accum: int = 1) -> AccumAdamW:
@@ -208,26 +211,30 @@ def make_train_step(
         raise ValueError("make_train_step: the optimizer was not made over the trainable leaves")
     dev = model.embed.embedding.device
     shards = model.shards
+    calls = 0  # micro-steps since the step was made: the args of its spans
 
     def step_fn(ids, loss_mask):
-        dsp_precision()
-        ids = torch.as_tensor(ids).to(dev)
-        loss_mask = torch.as_tensor(loss_mask).to(dev, torch.float32)
-        if use_fused:
-            hidden = model(ids, return_hidden=True)
-            head = model.lm_head.kernel
-            if shards is not None:
-                # kernel H's backward needs the whole vocabulary's lse, so it
-                # reads the whole (frozen) head: gathered over "model"
-                with torch.no_grad():
-                    head = shards.gather_from_model(head)
-            loss = causal_lm_loss_fused(hidden, head, ids, loss_mask, shards)
-        else:
-            loss = causal_lm_loss(model(ids), ids, loss_mask, shards)
-        loss.backward()
-        # on a sharded model, once per update: the accumulated local gradients made whole
-        tx.step(None if shards is None else lambda: shards.reduce_grads(named))
-        return loss.detach()
+        nonlocal calls
+        calls += 1
+        with span("train.step", calls - 1):
+            dsp_precision()
+            ids = torch.as_tensor(ids).to(dev)
+            loss_mask = torch.as_tensor(loss_mask).to(dev, torch.float32)
+            if use_fused:
+                hidden = model(ids, return_hidden=True)
+                head = model.lm_head.kernel
+                if shards is not None:
+                    # kernel H's backward needs the whole vocabulary's lse, so it
+                    # reads the whole (frozen) head: gathered over "model"
+                    with torch.no_grad():
+                        head = shards.gather_from_model(head)
+                loss = causal_lm_loss_fused(hidden, head, ids, loss_mask, shards)
+            else:
+                loss = causal_lm_loss(model(ids), ids, loss_mask, shards)
+            loss.backward()
+            # on a sharded model, once per update: the accumulated local gradients made whole
+            tx.step(None if shards is None else lambda: shards.reduce_grads(named))
+            return loss.detach()
 
     step_fn.loss_impl = "fused" if use_fused else "dense"
     if scan_steps is None:
