@@ -325,10 +325,18 @@ kernels and of all of kernels H's, F's, B's, the flash attention's, A's
     quantized to int8b on the card, ``greedy_generate_fused`` (16 prompts of
     64, 128 new; F counted layers x 127), its float32 tokens held to the
     dequantized tree's likewise. Alone: ``tools/cascade_stages_phase.py``.
+    Stage B's micro-steps launch ``nf4_dequant`` 7 x layers x 3 - 3 times a
+    call (stage A never), counted.
+
+After phase 26, kernel nf4_dequant (a QLoRA base kernel's NF4
+dequantization) at stage B's four shapes: bit-equal to its plain version in
+bfloat16 and float32, ms by CUDA-graph replay over input copies past L2,
+the byte bound, the plain version's ms, and what a micro-step's 585 calls
+take at those times. Alone: ``tools/nf4_dequant_phase.py``.
 
 It prints the card's name and power limit, one line per kernel, a
-``{"kernels": [...]}`` line with fifteen entries (mask_ema, ctc_viterbi and
-ctc_loss, which replace no TPU kernel, among them; A's and B's rows carry
+``{"kernels": [...]}`` line with sixteen entries (mask_ema, ctc_viterbi,
+ctc_loss and nf4_dequant, which replace no TPU kernel, among them; A's and B's rows carry
 ``cli_launches``, F's the converted 7B tree's; A's, B's, G's and H's
 ``parallel_launches``, phase 24's; A's and B's ``ingest_launches``, phase
 25's; FA's, H's and F's ``cascade_launches``, phase 26's, and FA's and H's
@@ -490,6 +498,13 @@ KERNEL_MASK_EMA = dict(
     source="prosody_control_french_tts_tpu_torch/csrc/mask_ema.cu",
     replaces="prosody_control_french_tts_tpu/audio/denoise.py:49",
 )
+# not a TPU kernel: a QLoRA base kernel's NF4 dequantization, XLA code in the JAX package
+KERNEL_NF4 = dict(
+    name="nf4_dequant",
+    route="cuda",
+    source="prosody_control_french_tts_tpu_torch/csrc/nf4_dequant.cu",
+    replaces="prosody_control_french_tts_tpu/models/quant.py:191",
+)
 KERNEL_E = dict(
     name="chunk_cumsum",
     route="cuda",
@@ -507,7 +522,7 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("vmem_attn.cu", "fused_ce.cu", "decode_attn.cu", "viterbi.cu", "flash_attention.cu", "pitch_candidates.cu",
-                 "chunk_cumsum.cu", "mask_ema.cu", "ctc_viterbi.cu")
+                 "chunk_cumsum.cu", "mask_ema.cu", "ctc_viterbi.cu", "nf4_dequant.cu")
 
 
 def start_ptxas_report():
@@ -665,6 +680,19 @@ def print_ptxas_report(procs, lib) -> None:
         row[f"dynamic_smem_v{CTC_VOCAB}_8_warps"] = 3 * tf * CTC_VOCAB * 4 + (tf + 1) * 8 * 16
     print(f"ptxas: ctc_viterbi kernels (<states a thread>; ring tiles of {tf} frames at V {CTC_VOCAB}; static "
           f"shared memory: the edge slots from the block before): " + json.dumps(report))
+    print("ptxas: nf4_dequant kernels (<output type, 16-byte path>): " + json.dumps(nf4_ptxas_rows(texts["nf4_dequant.cu"])))
+
+
+def nf4_ptxas_rows(text: str) -> dict:
+    """The ptxas rows of nf4_dequant.cu's four instantiations, with the
+    blocks of 256 threads that fit an SM."""
+    report = ptxas_rows(text, r"(nf4_dequant_kernel)I(13__nv_bfloat16|f)Lb(\d)E")
+    if len(report) != 4:
+        raise SystemExit(f"{len(report)} of the 4 nf4_dequant kernels in the ptxas report:\n{text[-2000:]}")
+    for row in report.values():
+        row["static_smem"] = 16 * 4
+        row["blocks_per_sm"] = blocks_per_sm(row["registers"], 256, row["static_smem"])
+    return report
 
 
 def alu_latency_ns(lib) -> float:
@@ -3325,7 +3353,7 @@ def train_cascade_stage(label: str, model, tx, state, cfg, spec: dict, seed: int
     import torch
 
     from prosody_control_french_tts_tpu_torch.models import training
-    from prosody_control_french_tts_tpu_torch.ops import flash_attention, fused_ce
+    from prosody_control_french_tts_tpu_torch.ops import flash_attention, fused_ce, nf4_dequant
 
     L, accum = spec["L"], spec["accum"]
     step = training.make_train_step(model, tx, trainable=state.mask, loss_impl="auto")
@@ -3343,12 +3371,20 @@ def train_cascade_stage(label: str, model, tx, state, cfg, spec: dict, seed: int
     weights = sum(v.numel() * v.element_size() for v in model.state_dict().values())
     torch.cuda.reset_peak_memory_stats()
     calls = 1 + CASCADE_UPDATES * accum
+    n_dequant = nf4_dequant.launches
     run = micro_steps(step, model, batches, mask, calls, accum, label)
+    n_dequant = nf4_dequant.launches - n_dequant
     peak_gb = (torch.cuda.max_memory_allocated() - frozen_bytes - (base - weights)) / 1e9
     want = cascade_counts(cfg.layers, calls, remat=True)
     print(f"{label} main path launches: {json.dumps(run['counts'])} (expected {json.dumps(want)})")
     if run["counts"] != want:
         raise SystemExit(f"{label}: launch counts {run['counts']}, expected {want}")
+    # NF4: every projection kernel dequantized in the forward, the recompute and the backward, but layer 0's q, k
+    # and v in the backward (their input needs no gradient)
+    want_dequant = calls * (7 * cfg.layers * 3 - 3) if spec["quant"] == "nf4" else 0
+    print(f"{label}: nf4_dequant launched {n_dequant} times in {calls} micro-steps (expected {want_dequant})")
+    if n_dequant != want_dequant:
+        raise SystemExit(f"{label}: nf4_dequant launched {n_dequant} times, expected {want_dequant}")
     losses = run["losses"]
     # call i takes batch i % accum: calls 1, accum + 1 and 2 accum + 1 read batch 0 before, after one and after two updates
     if not all(np.isfinite(losses)) or not losses[2 * accum] < losses[accum] < losses[0]:
@@ -3362,7 +3398,7 @@ def train_cascade_stage(label: str, model, tx, state, cfg, spec: dict, seed: int
     micro_ms = float(np.mean(ms[1:]))
     update_ms = float(np.sum(ms[1 + accum : 1 + 2 * accum]))  # the second update's calls, all warm
     stats = dict(cold_ms=ms[0], micro_ms=micro_ms, update_ms=update_ms, tokens_per_s=L * accum / update_ms * 1e3, peak_gb=peak_gb,
-                 losses_batch0=[losses[0], losses[accum], losses[2 * accum]], counts=run["counts"])
+                 losses_batch0=[losses[0], losses[accum], losses[2 * accum]], counts=run["counts"], nf4_dequant_launches=n_dequant)
     p14 = "not run in this process" if phase14 is None else f"{phase14['peak_gb']:.2f} GB at B 2 ({phase14['warm_ms']:.1f} ms a step, no remat)"
     print(f"{label} (B 1 x accum {accum}, L {L}, remat policy {spec['remat_policy']}, {'NF4' if spec['quant'] else 'bf16'} base, "
           f"lr {CASCADE_LR}): {micro_ms:.1f} ms a micro-step, {update_ms:.1f} ms an update, {stats['tokens_per_s']:.1f} trained tokens/s; "
@@ -3618,6 +3654,116 @@ def cascade_phase(args, card: str, phase14=None) -> dict:
     seconds = time.perf_counter() - t_phase
     print(f"phase 26 took {seconds:.1f} s; card={card}")
     return dict(launches=launches, stage_a=stage_a, stage_b=stage_b, quant_s=quant_s, host_mlp_s=host_mlp_s, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# the NF4 dequantization kernel at stage B's shapes (after phase 26)
+# ---------------------------------------------------------------------------
+
+# (in, out) of stage B's projections at Qwen2.5-7B, and how many of each a layer has
+NF4_SHAPES = {"q_o": ((3584, 3584), 2), "k_v": ((3584, 512), 2), "gate_up": ((3584, 18944), 2), "down": ((18944, 3584), 1)}
+NF4_COLD_BYTES = 128 << 20  # codes and scales of the copies a timing turns over: past the 50 MB L2
+
+
+def nf4_inputs(in_f: int, out_f: int, seed: int) -> tuple:
+    """Packed codes of every byte value and block scales log-uniform from the
+    quantizer's 1e-12 floor to 1, made on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    packed = torch.randint(0, 256, (in_f // 2, out_f), dtype=torch.uint8, device="cuda", generator=gen)
+    packed.view(-1)[:256] = torch.arange(256, device="cuda").to(torch.uint8)
+    scale = torch.pow(10.0, torch.empty((in_f // 64, out_f), device="cuda").uniform_(-12.0, 0.0, generator=gen))
+    return packed, scale
+
+
+def nf4_launch(lib, packed, scale, out, split: int) -> None:
+    """One launch of the kernel with ``split`` threads a block row (the plan's or another)."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.models import quant
+    from prosody_control_french_tts_tpu_torch.ops import kernels
+
+    in_f, out_f = out.shape
+    kernels.check(lib.nf4_dequant_launch(packed.data_ptr(), scale.data_ptr(), quant._on_device("NF4_TABLE", out.device).data_ptr(),
+                                         out.data_ptr(), in_f, out_f, split, int(out.dtype == torch.bfloat16), kernels.stream_ptr(out)),
+                  "nf4_dequant")
+
+
+def nf4_dequant_phase(card: str, lib, cascade_launches: dict | None = None, splits=()) -> dict:
+    """Kernel nf4_dequant against its plain version at stage B's four shapes
+    in bfloat16 and float32, bit for bit, and its ms by CUDA-graph replay
+    over copies of the inputs whose codes and scales exceed L2 (the training
+    step reads them cold), beside its bound (codes and scales read once, the
+    result written once, over 3.35 TB/s) and the plain version's ms; the
+    micro-step's dequantization time these give at stage B ("dots": three
+    calls a kernel, the first layer's q, k and v two). ``splits``: also the
+    bfloat16 ms of each of these shares of a block's packed rows, beside the
+    plan's. ``cascade_launches``: phase 26's launches by stage."""
+    import torch
+
+    from prosody_control_french_tts_tpu_torch.ops import nf4_dequant
+
+    sms = torch_sm_count()
+    shapes, err = {}, 0.0
+    for name, ((in_f, out_f), per_layer) in NF4_SHAPES.items():
+        packed, scale = nf4_inputs(in_f, out_f, seed=in_f + out_f)
+        row = dict(in_f=in_f, out_f=out_f, per_layer=per_layer, split=nf4_dequant.plan(in_f, out_f, sms).split)
+        copies = max(2, -(-NF4_COLD_BYTES // (packed.numel() + scale.numel() * 4)))
+        sets = [(packed, scale)] + [(packed.clone(), scale.clone()) for _ in range(copies - 1)]
+        for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+            want = nf4_dequant.nf4_dequant_plain(packed, scale, dtype)
+            n = nf4_dequant.launches
+            got = nf4_dequant.nf4_dequant(packed, scale, dtype)
+            torch.cuda.synchronize()
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            if nf4_dequant.launches != n + 1 or not torch.equal(got.view(bits), want.view(bits)):
+                bad = int((got.view(bits) != want.view(bits)).sum())
+                raise SystemExit(f"nf4_dequant {name} [{in_f}, {out_f}] {dtype}: {bad} of {got.numel()} values differ from the plain version")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            del got, want
+            turn = [0]
+
+            def call(dtype=dtype):
+                turn[0] += 1
+                return nf4_dequant.nf4_dequant(*sets[turn[0] % copies], dtype)
+
+            nbytes = packed.numel() + scale.numel() * 4 + in_f * out_f * dtype.itemsize
+            row[tag + "ms"] = graph_ms(call, reps=2 * copies)
+            row[tag + "bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            row[tag + "roofline_pct"] = 100 * row[tag + "bound_ms"] / row[tag + "ms"]
+            row[tag + "plain_ms"] = graph_ms(lambda dtype=dtype: nf4_dequant.nf4_dequant_plain(packed, scale, dtype), reps=3)
+        if splits:
+            out = torch.empty((in_f, out_f), dtype=torch.bfloat16, device="cuda")
+            row["split_ms"] = {}
+            for sp in splits:
+                turn = [0]
+
+                def launch(sp=sp):
+                    turn[0] += 1
+                    nf4_launch(lib, *sets[turn[0] % copies], out, sp)
+
+                row["split_ms"][sp] = graph_ms(launch, reps=2 * copies)
+            del out
+        shapes[name] = row
+        print(f"kernel nf4_dequant {name} [{in_f}, {out_f}] (plan split {row['split']}, {nf4_dequant.PACKED_ROWS // row['split']} packed rows a "
+              f"thread, {copies} input copies turned over): bfloat16 {row['ms']:.4f} ms against a bound of {row['bound_ms']:.4f} "
+              f"({row['roofline_pct']:.1f} %), plain {row['plain_ms']:.4f}; float32 {row['f32_ms']:.4f} against {row['f32_bound_ms']:.4f}, "
+              f"plain {row['f32_plain_ms']:.4f}; bit-equal to the plain version in both"
+              + (f"; by split {json.dumps(row['split_ms'])}" if splits else "") + f"; card={card}")
+        del sets, packed, scale
+        torch.cuda.empty_cache()
+
+    layers = 28  # Qwen2.5-7B's
+    calls = {k: layers * 3 * per for k, (_, per) in NF4_SHAPES.items()}
+    calls["q_o"] -= 1  # layer 0's q, k and v: no backward dequantization (their input needs no gradient)
+    calls["k_v"] -= 2
+    micro_ms = sum(calls[k] * shapes[k]["ms"] for k in shapes)
+    micro_bound = sum(calls[k] * shapes[k]["bound_ms"] for k in shapes)
+    print(f"kernel nf4_dequant: a stage-B micro-step's {sum(calls.values())} calls would take {micro_ms:.2f} ms on the card at these "
+          f"times, against a bound of {micro_bound:.2f} ms ({100 * micro_bound / micro_ms:.1f} %); max_abs_err={err:.3e} card={card}")
+    return dict(KERNEL_NF4, shapes=shapes, max_abs_err=err, micro_step_ms=micro_ms, micro_step_bound_ms=micro_bound,
+                micro_step_calls=sum(calls.values()), launches=cascade_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -5788,6 +5934,7 @@ def main() -> int:
             row["cascade_max_abs_err"] = {k: cascade[k]["max_abs_err"][row["name"]] for k in ("stage_a", "stage_b")}
         elif row["name"] == "decode_attn":
             row["cascade_launches"] = {"int8b_7b": cascade["launches"]["int8b_7b"]}
+    rows_out.append(nf4_dequant_phase(card, lib, {k: cascade[k]["nf4_dequant_launches"] for k in ("stage_a", "stage_b")}))
 
     # -- 16-19. the acoustic aligners and the pipeline with them -------------
     whisper_align_phase(card)

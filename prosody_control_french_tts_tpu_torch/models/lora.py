@@ -118,15 +118,12 @@ class LoRALinear(nn.Module):
         that fuse several projections into one matmul (``models.llm``
         ``fused_qkv``): the base kernel in the compute dtype, dequantized
         where quantized; bias and adapters as stored (None where absent)."""
-        dt = self.dtype
-        if self.quant == "int8":
-            kernel = dequant_int8(self.kernel_q, self.kernel_scale, dt)
-        elif self.quant == "int8b":
-            kernel = dequant_int8_block(self.kernel_q, self.kernel_scale, dt)
-        elif self.quant == "nf4":
-            kernel = dequant_nf4(self.kernel_q, self.kernel_scale, dt)
+        if self.quant == "int8b":
+            kernel = dequant_int8_block(self.kernel_q, self.kernel_scale, self.dtype)
+        elif self.quant is not None:
+            kernel = self._dequantized()
         else:
-            kernel = self.kernel.to(dt)  # no copy when already stored in dt
+            kernel = self.kernel.to(self.dtype)  # no copy when already stored in that dtype
         return (kernel, *self._adapters())
 
     def _adapters(self):

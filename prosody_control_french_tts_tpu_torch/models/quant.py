@@ -18,7 +18,8 @@ the NF4 table, ``rint`` half to even for int8; the torch path divides by a
 tensor (CUDA turns a division by a host scalar into a multiplication by its
 reciprocal) and works in column chunks of at most :data:`QUANT_CHUNK_BYTES`
 of intermediates. Neither path hands off to the other. The dequantizers and
-:func:`matmul_int8_block` take torch tensors on any device.
+:func:`matmul_int8_block` take torch tensors on the CPU or the card; on the
+card :func:`dequant_nf4` is one launch of a CUDA kernel (``ops.nf4_dequant``).
 
 Parameter trees here are flat ``state_dict`` mappings of
 ``models.llm.DecoderLM`` (``layers.0.attn.q.kernel`` …):
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.profiling import span
+from ..ops import nf4_dequant
 
 # The QLoRA NF4 codebook: 16 quantiles of N(0,1) normalised to [-1, 1]
 # (public constants from the QLoRA paper / bitsandbytes).
@@ -263,21 +265,18 @@ def _nf4_codes(packed: torch.Tensor) -> torch.Tensor:
 
 
 # the two NF4 levels of each packed byte: [2, 256], row 0 the low nibble's
+# (ops.nf4_dequant.nf4_dequant_plain's lookup)
 NF4_PAIRS = np.stack([NF4_TABLE[np.arange(256) & 0xF], NF4_TABLE[np.arange(256) >> 4]])
 
 
 def dequant_nf4(packed: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype, block: int = NF4_BLOCK) -> torch.Tensor:
-    """Codebook lookup → blockwise rescale in float32 → ``dtype``. One
-    lookup a byte gives both of its levels ([2, in/2, out]); the rescale
-    writes them interleaved, rows 2i and 2i+1, into the [in, out] result."""
+    """Codebook lookup → blockwise rescale in float32 → ``dtype``
+    (``ops.nf4_dequant``: one CUDA kernel launch for a CUDA tensor, the
+    plain PyTorch version for a CPU tensor; the same bits)."""
     half, out_f = packed.shape
-    in_f = half * 2
-    _count_dequant(packed, scale, in_f * out_f, dtype)
+    _count_dequant(packed, scale, half * 2 * out_f, dtype)
     with span("quant.dequant"):
-        pairs = _on_device("NF4_PAIRS", packed.device)[:, packed.long()]  # [2, in/2, out]
-        w = torch.empty((in_f // block, block // 2, 2, out_f), dtype=torch.float32, device=packed.device)
-        torch.mul(pairs.permute(1, 0, 2).reshape(in_f // block, block // 2, 2, out_f), scale.float()[:, None, None, :], out=w)
-        return w.reshape(in_f, out_f).to(dtype)
+        return nf4_dequant.nf4_dequant(packed, scale, dtype, block)
 
 
 # NF4 levels on the int8 grid (|round(t*127) - t*127| ≤ 0.5 → value error

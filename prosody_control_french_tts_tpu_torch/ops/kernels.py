@@ -12,7 +12,8 @@ parallel, and one link makes the shared library.
 
 Nothing here is touched by a CPU tensor: the wrappers in ``ops.candidates``,
 ``ops.viterbi``, ``ops.decode_attn``, ``ops.vmem_attn``, ``ops.fused_ce``,
-``ops.frames``, ``ops.chunk_cumsum``, ``ops.flash_attention``, ``ops.mask_ema``, ``ops.ctc_viterbi`` and ``ops.ctc_loss`` take their
+``ops.frames``, ``ops.chunk_cumsum``, ``ops.flash_attention``, ``ops.mask_ema``, ``ops.ctc_viterbi``, ``ops.ctc_loss`` and
+``ops.nf4_dequant`` take their
 plain PyTorch versions only for tensors on the CPU, and call :func:`library` only for CUDA tensors — a failed build
 or launch raises, there is no fallback.
 """
@@ -35,6 +36,7 @@ CSRC = PKG_DIR / "csrc"
 SOURCES = (
     "pitch_candidates.cu", "viterbi.cu", "decode_attn.cu", "vmem_attn.cu", "fused_ce.cu",
     "frames.cu", "chunk_cumsum.cu", "flash_attention.cu", "mask_ema.cu", "ctc_viterbi.cu", "ctc_loss.cu",
+    "nf4_dequant.cu",
 )
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
@@ -132,6 +134,8 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _VP, _F, _I, _VP),
     # kernel (0 forward, 1 dq, 2 dk/dv), hd, dtype (0 float32, 1 bfloat16) -> bytes of dynamic shared memory
     "flash_attn_smem_bytes": (_I, _I, _I),
+    # packed, scale, table, out, in_f, out_f, split, dtype (0 float32, 1 bfloat16), stream
+    "nf4_dequant_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
 }
 
 

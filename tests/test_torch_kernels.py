@@ -15,7 +15,8 @@ import torch
 
 from prosody_control_french_tts_tpu_torch.models import quant
 from prosody_control_french_tts_tpu_torch.ops import (
-    candidates, chunk_cumsum, ctc_loss, ctc_viterbi, decode_attn, flash_attention, frames, fused_ce, mask_ema, viterbi, vmem_attn,
+    candidates, chunk_cumsum, ctc_loss, ctc_viterbi, decode_attn, flash_attention, frames, fused_ce, mask_ema, nf4_dequant, viterbi,
+    vmem_attn,
 )
 
 K_CAND, MIN_LAG, MAX_LAG, VTH = 14, 72, 295, 0.45
@@ -1425,3 +1426,145 @@ def test_quantizers_on_the_card_equal_numpy(cuda, inputs):
             np.testing.assert_array_equal(g.cpu().numpy(), h)
     finally:
         quant.QUANT_CHUNK_BYTES = chunk
+
+
+# ---------------------------------------------------------------------------
+# nf4_dequant (a QLoRA base kernel's NF4 dequantization; no TPU kernel)
+# ---------------------------------------------------------------------------
+
+# (in, out) of stage B's four projections at Qwen2.5-7B: q and o, k and v,
+# gate and up, down
+NF4_STAGE_B_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+NF4_SMALL_SHAPES = [(64, 16), (128, 48), (192, 8)]
+# column counts that no thread's columns divide (8 in bfloat16, 4 in float32): the masked edge
+NF4_RAGGED_SHAPES = [(128, 37), (64, 6)]
+
+
+def nf4_inputs(in_f: int, out_f: int, seed: int):
+    """Packed codes with every byte value (the first 256 in order, then
+    seeded), and block scales spread log-uniformly from the quantizer's
+    1e-12 floor to 1, both ends included."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 256, size=(in_f // 2) * out_f, dtype=np.uint8)
+    packed[:256] = np.arange(256, dtype=np.uint8)[: packed.size]
+    scale = (10.0 ** rng.uniform(-12.0, 0.0, size=(in_f // 64) * out_f)).astype(np.float32)
+    scale[0], scale[-1] = np.float32(1e-12), np.float32(1.0)
+    return torch.from_numpy(packed.reshape(in_f // 2, out_f)), torch.from_numpy(scale.reshape(in_f // 64, out_f))
+
+
+def _dequant_nf4_before(packed, scale, dtype, block=64):
+    """``models.quant.dequant_nf4`` as it was before the CUDA kernel, kept
+    word for word: the plain version must give its bits."""
+    half, out_f = packed.shape
+    in_f = half * 2
+    pairs = torch.from_numpy(quant.NF4_PAIRS)[:, packed.long()]  # [2, in/2, out]
+    w = torch.empty((in_f // block, block // 2, 2, out_f), dtype=torch.float32, device=packed.device)
+    torch.mul(pairs.permute(1, 0, 2).reshape(in_f // block, block // 2, 2, out_f), scale.float()[:, None, None, :], out=w)
+    return w.reshape(in_f, out_f).to(dtype)
+
+
+def nf4_cover(p, out_f: int, t: np.ndarray):
+    """(first packed row, first column, columns) of threads ``t`` under plan
+    ``p``: ``csrc/nf4_dequant.cu:nf4_dequant_kernel``'s mapping of a thread
+    to its work, written out. Each thread takes ``p.rows`` packed rows."""
+    g = t % p.groups
+    rest = t // p.groups
+    s, b = rest % p.split, rest // p.split
+    c0 = g * p.cols
+    return b * nf4_dequant.PACKED_ROWS + s * p.rows, c0, np.minimum(p.cols, out_f - c0)
+
+
+@pytest.mark.parametrize("shape", NF4_STAGE_B_SHAPES + NF4_SMALL_SHAPES + NF4_RAGGED_SHAPES)
+@pytest.mark.parametrize("sms,itemsize", [(132, 2), (4, 2), (132, 4)])
+def test_nf4_dequant_plan_covers_each_row_and_column_once(shape, sms, itemsize):
+    """The kernel's mapping of threads to work (as the kernel computes it)
+    takes every packed row and every column exactly once, and no thread past
+    the edge, on the H100's 132 SMs and on a small card, for bfloat16 and
+    float32 output."""
+    in_f, out_f = shape
+    p = nf4_dequant.plan(in_f, out_f, sms, itemsize)
+    assert p.cols * itemsize == nf4_dequant.ROW_BYTES and p.split * p.rows == nf4_dequant.PACKED_ROWS
+    row0, c0, ncols = nf4_cover(p, out_f, np.arange(p.groups * p.blocks * p.split))
+    assert (row0 % p.rows == 0).all() and (c0 % p.cols == 0).all() and (ncols > 0).all()
+    assert row0.max() + p.rows == in_f // 2 and (c0 + ncols).max() == out_f
+    cell = (row0 // p.rows) * p.groups + c0 // p.cols
+    assert np.array_equal(np.bincount(cell, minlength=(in_f // 2 // p.rows) * p.groups), np.ones((in_f // 2 // p.rows) * p.groups))
+    assert int((ncols * p.rows).sum()) == (in_f // 2) * out_f
+
+
+def test_nf4_dequant_plan_splits_rows_where_columns_are_few():
+    """Every block row's 32 packed rows are shared by at least 8 threads;
+    k and v (512 columns: 64 threads a block row) by more, so that the grid
+    has a thread block for each of the card's SMs; a plan refuses rows that
+    no block divides."""
+    kv, q, mlp, down = (nf4_dequant.plan(i, o, 132) for i, o in NF4_STAGE_B_SHAPES[1::-1] + NF4_STAGE_B_SHAPES[2:])
+    assert q.split == mlp.split == down.split == nf4_dequant.SPLIT == 8
+    # 8 shares would give k and v 64 x 56 x 8 threads: 112 thread blocks for 132 SMs
+    assert kv.split == 16 and 64 * 56 * 8 // nf4_dequant.BLOCK_THREADS < 132
+    assert nf4_dequant.plan(64, 16, 4).split == 32 and nf4_dequant.plan(3584, 512, 4).split == 8
+    assert nf4_dequant.BLOCK == quant.NF4_BLOCK
+    with pytest.raises(ValueError):
+        nf4_dequant.plan(96, 512, 132)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequant_nf4_on_cpu_takes_the_plain_path_and_counts(dtype):
+    """On CPU tensors ``quant.dequant_nf4`` runs the plain version (no
+    launch) and counts one call and its bytes as before."""
+    packed, scale = nf4_inputs(128, 48, seed=5)
+    n, calls, nbytes = nf4_dequant.launches, quant.dequant_calls, quant.dequant_bytes
+    got = quant.dequant_nf4(packed, scale, dtype)
+    assert nf4_dequant.launches == n
+    assert quant.dequant_calls == calls + 1
+    assert quant.dequant_bytes == nbytes + packed.numel() + scale.numel() * 4 + 128 * 48 * dtype.itemsize
+    assert got.dtype == dtype and torch.equal(got, nf4_dequant.nf4_dequant_plain(packed, scale, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nf4_dequant_plain_keeps_its_bits_at_stage_b_kv(dtype):
+    """The plain version at stage B's smallest shape (k and v, [3584, 512])
+    gives the bits of the function it was moved from, on every code byte
+    and scale range."""
+    packed, scale = nf4_inputs(3584, 512, seed=7)
+    got = nf4_dequant.nf4_dequant_plain(packed, scale, dtype)
+    want = _dequant_nf4_before(packed, scale, dtype)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", NF4_STAGE_B_SHAPES + NF4_SMALL_SHAPES + NF4_RAGGED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nf4_dequant_kernel_equals_plain(cuda, shape, dtype):
+    """Bit for bit at stage B's four shapes, at small ones and at ragged
+    ones (the masked edge), every code byte, scales from 1e-12 to 1; one
+    launch a call."""
+    packed, scale = (t.to(cuda) for t in nf4_inputs(*shape, seed=shape[0] + shape[1]))
+    want = nf4_dequant.nf4_dequant_plain(packed, scale, dtype)
+    n = nf4_dequant.launches
+    got = nf4_dequant.nf4_dequant(packed, scale, dtype)
+    torch.cuda.synchronize()
+    assert nf4_dequant.launches == n + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == dtype and torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
+def test_nf4_dequant_wrapper_counts_and_checks(cuda):
+    """``quant.dequant_nf4`` on the card launches the kernel once a call; the
+    wrapper refuses a non-contiguous input, float16 and in % 64 != 0."""
+    packed, scale = (t.to(cuda) for t in nf4_inputs(128, 48, seed=3))
+    n, calls = nf4_dequant.launches, quant.dequant_calls
+    quant.dequant_nf4(packed, scale, torch.bfloat16)
+    quant.dequant_nf4(packed, scale, torch.float32)
+    assert nf4_dequant.launches - n == quant.dequant_calls - calls == 2
+    wide_p, wide_s = (t.to(cuda) for t in nf4_inputs(128, 96, seed=4))
+    with pytest.raises(ValueError, match="contiguous"):
+        nf4_dequant.nf4_dequant(wide_p[:, ::2], wide_s[:, ::2].contiguous(), torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        nf4_dequant.nf4_dequant(packed, wide_s[:, ::2], torch.bfloat16)
+    with pytest.raises(TypeError):
+        nf4_dequant.nf4_dequant(packed, scale, torch.float16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        nf4_dequant.nf4_dequant(packed[:48].contiguous(), scale[:1].contiguous(), torch.bfloat16)
+    assert nf4_dequant.launches - n == 2

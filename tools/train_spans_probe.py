@@ -12,8 +12,9 @@ user scope beside the card's activity, with the dequant counters read
 around them. Then ``--rounds`` turns of the plain, card-only and spans
 stretches, each timed between synchronisations (the wall of an update),
 with the garbage collector's pauses inside each. The readers' values of the
-six span metrics (``benchmark/metrics/``) and the notes go to standard
-error, one JSON line to standard output.
+six span metrics (``benchmark/metrics/``), the notes and the NF4 kernel's
+launches a micro-step beside the dequant calls go to standard error, one
+JSON line to standard output.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def probe(cell: dict, seed: int, seconds: float, rounds: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from prosody_control_french_tts_tpu_torch.ops import kernels
+    from prosody_control_french_tts_tpu_torch.ops import kernels, nf4_dequant
 
     drv = harness.driver(cell["traffic"])
     kernels.library()
@@ -97,8 +98,11 @@ def probe(cell: dict, seed: int, seconds: float, rounds: int) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]), record_function(tr.SPAN):
             yield
 
+    launched = nf4_dequant.launches
     rec, _, paused = timed(spans.recording("cuda"))
+    launched = nf4_dequant.launches - launched
     sp = spans.context(spans.from_result(rec["result"]), U * accum, rec["dequant_calls"], rec["dequant_bytes"])
+    sp["nf4_dequant_launches"] = launched
     new = {m: v for m in METRICS if (v := harness.reader(m)({"spans": sp})) is not None}
     sp["gc_pauses_s"] = paused
     del rec
@@ -134,8 +138,12 @@ def main() -> int:
     if loaded:
         print(f"loaded in this process, which the port may not load: {loaded}", file=sys.stderr)
         return 3
-    for line in spans.notes(out["spans"]):
+    sp = out["spans"]
+    for line in spans.notes(sp):
         print(line, file=sys.stderr)
+    n = sp["micro_steps"]
+    print(f"ops.nf4_dequant.launches {sp['nf4_dequant_launches'] / n:g} a micro-step beside quant.dequant_calls "
+          f"{sp['dequant_calls'] / n:g} (equal where every CUDA call took the kernel)", file=sys.stderr)
     for key in ("seven", "busy", "new", "walls", "gc_pauses_s"):
         print(f"{key}: {json.dumps(out[key])}", file=sys.stderr)
     print(json.dumps(out), flush=True)
